@@ -34,10 +34,10 @@ cfg = dict(
         # intent, full_model.py:47-72: peft r=2 alpha=4 on q/k/v).  Enable
         # with --opts model_cfg.lora.enable True; saves adapters + a merged
         # HF-layout backbone per checkpoint interval.
-        # remat: "none" (fastest; bs16@518px fits a 16GB v5e, measured 11%
-        # over "layer" — scripts/microbench/bench_lora_remat.py), "dots"
+        # remat: "none" (least recompute, most activation memory), "dots"
         # (matmul outputs saved, elementwise replayed), or "layer"/True
         # (lowest memory — use for high-res or large-batch fine-tuning).
+        # Which is fastest on the H100 is not measured.
         lora=dict(enable=False, rank=2, alpha=4.0, lr=1e-4, remat="none"),
     ),
     val_cfg=dict(

@@ -1,7 +1,7 @@
 // Native host image pipeline: decode (libjpeg/libpng) + PIL-exact bilinear
 // resize + ImageNet normalisation, threaded over a batch.
 //
-// TPU-native counterpart of the reference's host-side PIL/torchvision input
+// Native counterpart of the reference's host-side PIL/torchvision input
 // path (reference: data/datasets/transforms.py:8-43 and the per-image decode
 // loop of base_dataset.py:124-144).  The reference leans on PIL inside a
 // Python loop; here the whole decode->resize->normalise chain for a batch is

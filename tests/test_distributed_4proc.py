@@ -1,4 +1,4 @@
-"""Four-process jax.distributed fidelity (VERDICT round-2 item 5).
+"""Four-process jax.distributed fidelity.
 
 Four CPU processes x 2 virtual devices = an 8-device global mesh, covering
 in ONE multi-process program the three things real pods exercise:

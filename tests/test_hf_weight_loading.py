@@ -117,9 +117,10 @@ def test_resolve_compute_dtype():
     import jax.numpy as jnp
 
     from ucod_dpl_tpu.config.config import CfgNode
-    from ucod_dpl_tpu.engine.runner import resolve_compute_dtype
+    from ucod_dpl_tpu.device import resolve_compute_dtype
 
-    assert resolve_compute_dtype(CfgNode({})) is None
+    # unset: the platform default (float32 on the CPU)
+    assert resolve_compute_dtype(CfgNode({})) == jnp.float32
     assert resolve_compute_dtype(
         CfgNode({"tpu_cfg": {"compute_dtype": "bfloat16"}})
     ) == jnp.bfloat16

@@ -80,7 +80,7 @@ def test_stage1_fits_separable_data():
 
 
 # ---------------------------------------------------------------------------
-# Stage 2 (VERDICT round-2 item 6): the invented CORAL trainer must have
+# Stage 2: the invented CORAL trainer must have
 # empirical grounding — train the SparseRefiner with the shipped
 # IoU-weighted distillation loss (UDLR.py:52-75 semantics, the same loss
 # engine/coral_loop.LocalRefineTrainLoop optimises) on synthetic data where
@@ -275,7 +275,7 @@ def test_stage2_refiner_beats_coarse(trained_with_ge):
 
 
 def test_ge_ensemble_term_ablation(stage2_setup, trained_with_ge):
-    """The GE ensemble term must be LOAD-BEARING (VERDICT r3 #8): the shipped
+    """The GE ensemble term must be LOAD-BEARING: the shipped
     distillation loss alone (cal_ex_loss, UDLR.py:52-75) gives the
     GatedEnsembler fuser NO gradient, so the fused output stays at random
     init and cannot beat the coarse prediction; adding

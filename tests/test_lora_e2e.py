@@ -1,4 +1,4 @@
-"""LoRA end-to-end surface (VERDICT round-2 item 3).
+"""LoRA end-to-end surface.
 
 The reference's end-to-end LoRA intent (``models/modules/full_model.py:47-72``
 — peft r=2 alpha=4 on q/k/v; broken upstream) as a working, config-reachable

@@ -46,7 +46,7 @@ def test_parity_runner_plumbing(tmp_path):
     _synth(str(tmp_path / "RefCOD"))
     report_path = str(tmp_path / "report.json")
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
-    env["UCOD_FORCE_CPU"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
         [
             sys.executable, os.path.join(REPO, "scripts", "parity.py"),
@@ -79,7 +79,7 @@ def test_parity_runner_strict_refuses_random(tmp_path):
     (strict in-extractor loading itself is pinned by test_serving.py)."""
     _synth(str(tmp_path / "RefCOD"))
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
-    env["UCOD_FORCE_CPU"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
         [
             sys.executable, os.path.join(REPO, "scripts", "parity.py"),

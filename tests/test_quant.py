@@ -122,9 +122,9 @@ def test_fg_logits_live_int8_agreement():
 
 
 def test_fg_logits_live_int8_bf16_dtype_plumbing():
-    """The on-chip configuration is compute_dtype=bf16: the quantized
+    """The on-card configuration is compute_dtype=bf16: the quantized
     composition must run in bf16 end-to-end and still track the bf16
-    full-precision path (this is what selfcheck check 9 runs on hardware)."""
+    full-precision path (chip_smoke.py's int8 phase runs it on the card)."""
     params, decoder = _tiny_model(seed=11)
     rng = np.random.default_rng(6)
     pixels = jnp.asarray(rng.standard_normal((2, 56, 56, 3)).astype(np.float32))
@@ -321,178 +321,3 @@ def test_refine_predictor_int8_smoke():
         assert b.shape == (56, 56)
         assert set(np.unique(b)).issubset({0.0, 1.0})
         assert np.mean(a == b) > 0.9, np.mean(a == b)
-
-
-def test_layernorm_qkv_w8a8_kernel_matches_fallback(monkeypatch):
-    """The fused int8 LN+quant+QKV kernel (interpret mode = exact kernel
-    semantics on CPU) vs the unfused shared-quant composition.  Tolerance is
-    ONE activation quantum: the kernel's rsqrt-based LayerNorm can differ
-    from the fallback's by 1 ulp, flipping round-to-nearest ties by +-1
-    int8 step worth s_x * w_s."""
-    from ucod_dpl_tpu.models.dino import _layernorm
-    from ucod_dpl_tpu.ops.fused_layers import layernorm_qkv_w8a8
-    from ucod_dpl_tpu.ops.quant import dense_w8a8_pre, quantize_act
-
-    rng = np.random.default_rng(0)
-    d = 128
-    x = jnp.asarray(rng.standard_normal((2, 37, d)).astype(np.float32))
-    norm = {
-        "scale": jnp.asarray(1.0 + 0.1 * rng.standard_normal(d), jnp.float32),
-        "bias": jnp.asarray(0.1 * rng.standard_normal(d), jnp.float32),
-    }
-    q8 = [
-        quantize_linear(
-            {
-                "w": jnp.asarray(rng.standard_normal((d, d)), jnp.float32) / d**0.5,
-                "b": jnp.asarray(rng.standard_normal(d), jnp.float32) * 0.1,
-            }
-        )
-        for _ in range(3)
-    ]
-
-    h = _layernorm(x, norm, 1e-6)
-    h_q, h_s = quantize_act(h)
-    ref = [dense_w8a8_pre(h_q, h_s, qp, jnp.float32) for qp in q8]
-
-    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
-    fused = layernorm_qkv_w8a8(x, norm, *q8, eps=1e-6)
-
-    # one-quantum bound: |diff| <= s_x * max|w_s| per element (plus f32 noise)
-    quantum = float(jnp.max(h_s)) * max(float(jnp.max(qp["w_s"])) for qp in q8)
-    for got, want in zip(fused, ref):
-        diff = np.abs(np.asarray(got) - np.asarray(want))
-        assert diff.max() <= quantum + 1e-5, (diff.max(), quantum)
-        # the overwhelming majority of elements agree to f32 epilogue noise
-        # (1e-7-class reassociation in acc * (s_x * w_s) + b); only rare
-        # rounding ties may differ by a full quantum
-        assert (diff <= 1e-5).mean() > 0.99
-
-
-def test_dino_forward_int8_fused_vs_unfused_kernel_paths(monkeypatch):
-    """The composed int8 forward with the fused Pallas kernel (interpret)
-    tracks the pure-XLA int8 forward at the quantization-noise scale."""
-    params, _ = _tiny_model()
-    qparams = quantize_dino_linears(params)
-    px = jnp.asarray(
-        np.random.default_rng(3).standard_normal((1, 56, 56, 3)).astype(np.float32)
-    )
-    ref = dino_forward(params, px, TINY, quant=qparams)["key_features"]
-    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
-    got = dino_forward(params, px, TINY, quant=qparams)["key_features"]
-    ref, got = np.asarray(ref), np.asarray(got)
-    corr = np.corrcoef(ref.ravel(), got.ravel())[0, 1]
-    assert corr > 0.999, corr
-    np.testing.assert_allclose(got, ref, atol=0.05)
-
-
-def test_lnfc1gelu_w8a8_kernel_matches_fallback(monkeypatch):
-    """The fused int8 MLP-half kernel (interpret mode) vs the unfused
-    shared-quant composition: int8 codes within one step, scales to f32
-    noise."""
-    from ucod_dpl_tpu.models.dino import _layernorm
-    from ucod_dpl_tpu.ops.fused_layers import layernorm_fc1_gelu_w8a8
-    from ucod_dpl_tpu.ops.quant import dense_w8a8_pre, quantize_act
-
-    rng = np.random.default_rng(5)
-    d, df = 128, 256
-    x = jnp.asarray(rng.standard_normal((2, 37, d)).astype(np.float32))
-    norm = {
-        "scale": jnp.asarray(1.0 + 0.1 * rng.standard_normal(d), jnp.float32),
-        "bias": jnp.asarray(0.1 * rng.standard_normal(d), jnp.float32),
-    }
-    q8 = quantize_linear(
-        {
-            "w": jnp.asarray(rng.standard_normal((d, df)), jnp.float32) / d**0.5,
-            "b": jnp.asarray(rng.standard_normal(df), jnp.float32) * 0.1,
-        }
-    )
-
-    h = _layernorm(x, norm, 1e-6)
-    h_q, h_s = quantize_act(h)
-    g = jax.nn.gelu(dense_w8a8_pre(h_q, h_s, q8, jnp.float32), approximate=True)
-    ref_q, ref_s = quantize_act(g)
-
-    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
-    got_q, got_s = layernorm_fc1_gelu_w8a8(x, norm, q8, eps=1e-6)
-
-    np.testing.assert_allclose(np.asarray(got_s), np.asarray(ref_s), rtol=1e-5)
-    code_diff = np.abs(
-        np.asarray(got_q, np.int32) - np.asarray(ref_q, np.int32)
-    )
-    assert code_diff.max() <= 1, code_diff.max()  # rounding ties only
-    assert (code_diff == 0).mean() > 0.99
-
-
-def test_lnmlp_w8a8_kernel_matches_split(monkeypatch):
-    """The whole-MLP int8 kernel (interpret mode) vs the split composition
-    (fused fc1 kernel fallback + dense_w8a8_pre fc2) — same arithmetic, so
-    the only allowed difference is one requant rounding tie propagated
-    through fc2 (<= one fc2 quantum)."""
-    from ucod_dpl_tpu.models.dino import _layernorm
-    from ucod_dpl_tpu.ops.fused_layers import layernorm_mlp_w8a8
-    from ucod_dpl_tpu.ops.quant import dense_w8a8_pre, quantize_act
-
-    rng = np.random.default_rng(13)
-    d, df = 128, 256
-    x = jnp.asarray(rng.standard_normal((2, 37, d)).astype(np.float32))
-    norm = {
-        "scale": jnp.asarray(1.0 + 0.1 * rng.standard_normal(d), jnp.float32),
-        "bias": jnp.asarray(0.1 * rng.standard_normal(d), jnp.float32),
-    }
-    q8_1 = quantize_linear(
-        {
-            "w": jnp.asarray(rng.standard_normal((d, df)), jnp.float32) / d**0.5,
-            "b": jnp.asarray(rng.standard_normal(df), jnp.float32) * 0.1,
-        }
-    )
-    q8_2 = quantize_linear(
-        {
-            "w": jnp.asarray(rng.standard_normal((df, d)), jnp.float32) / df**0.5,
-            "b": jnp.asarray(rng.standard_normal(d), jnp.float32) * 0.1,
-        }
-    )
-
-    h = _layernorm(x, norm, 1e-6)
-    h_q, h_s = quantize_act(h)
-    g = jax.nn.gelu(dense_w8a8_pre(h_q, h_s, q8_1, jnp.float32), approximate=True)
-    g_q, g_s = quantize_act(g)
-    ref = dense_w8a8_pre(g_q, g_s, q8_2, jnp.float32)
-
-    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
-    got = layernorm_mlp_w8a8(x, norm, q8_1, q8_2, eps=1e-6)
-
-    quantum = float(jnp.max(g_s)) * float(jnp.max(q8_2["w_s"])) * df
-    diff = np.abs(np.asarray(got) - np.asarray(ref))
-    # one fc1-requant rounding tie flips one int8 code feeding a df-wide
-    # accumulation; bound by one quantum per contraction element is loose,
-    # in practice nearly all elements agree to f32 noise
-    assert diff.max() <= quantum + 1e-5, (diff.max(), quantum)
-    assert (diff <= 1e-4).mean() > 0.99
-
-
-def test_quant_dense_w8a8_kernel_matches_fallback(monkeypatch):
-    """The fused quantize+matmul kernel (the int8 attention out-projection,
-    interpret mode) is BIT-IDENTICAL to ops/quant.dense_w8a8: same per-token
-    quantization (same _EPS floor, same rounding), same int8 dot, same f32
-    rescale order — the kernel only removes the HBM round-trip, not a single
-    arithmetic difference."""
-    from ucod_dpl_tpu.ops.fused_layers import dense_quant_w8a8
-    from ucod_dpl_tpu.ops.quant import dense_w8a8
-
-    rng = np.random.default_rng(9)
-    d, dout = 128, 128
-    x = jnp.asarray(rng.standard_normal((2, 37, d)).astype(np.float32))
-    q8 = quantize_linear(
-        {
-            "w": jnp.asarray(rng.standard_normal((d, dout)), jnp.float32) / d**0.5,
-            "b": jnp.asarray(rng.standard_normal(dout), jnp.float32) * 0.1,
-        }
-    )
-    ref = dense_w8a8(x, q8, jnp.float32)
-    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
-    got = dense_quant_w8a8(x, q8, jnp.float32)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-6, atol=1e-7)
-    # dtype mismatch or off-TPU: falls back to the unfused path, same result
-    monkeypatch.delenv("UCOD_PALLAS_INTERPRET")
-    got_fb = dense_quant_w8a8(x, q8, jnp.float32)
-    np.testing.assert_array_equal(np.asarray(got_fb), np.asarray(ref))

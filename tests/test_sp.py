@@ -2,7 +2,7 @@
 sharded runs must match the single-device computation, padding included.
 
 The reference has no token-dim scaling at all (whole-image extraction on one
-GPU, ``base_dataset.py:124-144``); SP is the TPU-native axis that grows with
+GPU, ``base_dataset.py:124-144``); SP is the mesh axis that grows with
 image resolution.
 """
 

@@ -1,7 +1,7 @@
 """2D-sharded attention (SP x TP): heads over `model`, tokens ringing over
-`seq` — the composition round 4's VERDICT flagged as the one declared hole in
-the parallelism matrix (the reference has NO tensor/sequence parallelism at
-all; SURVEY §2.4 — its only strategy is DP via accelerate, `train.py:40-63`).
+`seq` — once the one declared hole in the parallelism matrix (the
+reference has NO tensor/sequence parallelism at all; SURVEY §2.4 — its
+only strategy is DP via accelerate, `train.py:40-63`).
 
 Attention is head-local, so the ring composes with head sharding inside ONE
 shard_map: each (seq, model) shard runs the online-softmax merge on its own

@@ -1,13 +1,13 @@
-"""UCOD-DPL TPU — a TPU-native (JAX/XLA/Pallas) framework for unsupervised
-camouflaged object detection via dynamic pseudo-label learning (UCOD-DPL,
-CVPR 2025) and adaptive pseudo-label learning with dynamic local refinement
-(CORAL).
+"""UCOD-DPL in JAX — a framework for unsupervised camouflaged object
+detection via dynamic pseudo-label learning (UCOD-DPL, CVPR 2025) and
+adaptive pseudo-label learning with dynamic local refinement (CORAL).
 
-This is a ground-up rebuild of the capabilities of the PyTorch reference
-implementation (Heartfirey/UCOD-DPL) designed TPU-first: pure jitted step
-functions over explicit state pytrees, Pallas kernels for the attention hot
-path, GSPMD sharding over device meshes, and host-side NumPy only where the
-algorithm is inherently sequential (connected components, streaming metrics).
+A ground-up rebuild of the capabilities of the PyTorch reference
+implementation (Heartfirey/UCOD-DPL) for NVIDIA GPUs: pure jitted step
+functions over explicit state pytrees, cuDNN flash attention on the
+backbone's hot path, GSPMD sharding over device meshes, and host-side NumPy
+only where the algorithm is inherently sequential (connected components,
+streaming metrics).
 """
 
 __version__ = "0.4.0"

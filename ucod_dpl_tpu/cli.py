@@ -192,7 +192,7 @@ def generate_pseudo_label_main(argv=None):
     DINOv2-base at 224px over the training images; background segmentation
     from the last layer's CLS attention + key cosine similarity; small-
     component cleanup; dumped to the pseudo-label cache layout the datasets
-    read.  TPU-first: images run through the backbone in batches (the
+    read.  Images run through the backbone in batches (the
     reference is strictly image-at-a-time) and the full background-mask
     math executes as one XLA program per batch.
     """

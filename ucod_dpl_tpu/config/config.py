@@ -18,7 +18,6 @@ import importlib.util
 import os
 from typing import Any, Dict, Iterable, List
 
-import yaml
 
 _BASE_KEY = "_BASE_"
 _VALID_SCALARS = (int, float, bool, str, type(None))
@@ -173,9 +172,11 @@ class CfgNode(dict):
     def dump_yaml(self, path: str) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         with open(path, "w") as f:
-            yaml.safe_dump(self.to_dict(), f, default_flow_style=False, sort_keys=False)
+            f.write(str(self))
 
     def __str__(self) -> str:
+        import yaml  # only YAML configs and config dumps need pyyaml
+
         return yaml.safe_dump(self.to_dict(), default_flow_style=False, sort_keys=False)
 
 
@@ -253,6 +254,8 @@ def _load_py_cfg(path: str) -> Dict[str, Any]:
 
 
 def _load_yaml_cfg(path: str) -> Dict[str, Any]:
+    import yaml
+
     with open(path) as f:
         data = yaml.safe_load(f)
     return data or {}

@@ -10,7 +10,7 @@ Behavioral counterpart of the reference data layer
   {cache_dir}/patch_cache/{extractor}/{mode}/{DATASET}
   {cache_dir}/m_patch_cache/{extractor}/{mode}/{DATASET}
 
-TPU-first difference: the one-time feature cache build runs the DINO
+Difference from the reference: the one-time feature cache build runs the DINO
 backbone in *batches* (the reference loops image-by-image), and all arrays
 are NHWC.  Legacy torch-pickle caches written by the PyTorch reference are
 read transparently (CHW -> HWC conversion).

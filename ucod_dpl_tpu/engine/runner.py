@@ -16,6 +16,7 @@ import jax
 import numpy as np
 
 from ucod_dpl_tpu.data import CODDataset, DataLoader, FeatureExtractor, LRDataset
+from ucod_dpl_tpu.device import enable_compilation_cache, resolve_compute_dtype
 from ucod_dpl_tpu.models import (
     init_discriminator,
     load_decoder_checkpoint,
@@ -24,34 +25,6 @@ from ucod_dpl_tpu.models import (
 from ucod_dpl_tpu.models.dba import init_rev_decoder
 from ucod_dpl_tpu.parallel import build_mesh
 from ucod_dpl_tpu.utils import Logger, get_logger
-
-
-def resolve_compute_dtype(cfg):
-    """tpu_cfg.compute_dtype -> jnp dtype (None when unset: backend default).
-
-    Shared by Runner construction and anything that must pre-warm the same
-    jitted programs (scripts/bench_e2e.py) — the dtype is part of the jit
-    cache key, so resolving it differently compiles a different program."""
-    dtype_name = cfg.get("tpu_cfg", {}).get("compute_dtype")
-    if not dtype_name:
-        return None
-    import jax.numpy as jnp
-
-    return jnp.bfloat16 if dtype_name == "bfloat16" else jnp.dtype(dtype_name)
-
-
-def _enable_compilation_cache() -> None:
-    """Persistent XLA compilation cache: compiles survive across processes,
-    which matters enormously where compilation is remote/slow (each fresh
-    CLI process otherwise re-pays 20s+ per jitted shape)."""
-    try:
-        cache_dir = os.environ.get(
-            "UCOD_JAX_CACHE", os.path.expanduser("~/.cache/ucod_jax_cache")
-        )
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # older jax without the knobs
 
 
 class Runner:
@@ -73,7 +46,7 @@ class Runner:
         from ucod_dpl_tpu.parallel.distributed import maybe_initialize_distributed
 
         maybe_initialize_distributed()
-        _enable_compilation_cache()
+        enable_compilation_cache()
         self._setup_dirs()
         self.logger = Logger(
             "ucod",

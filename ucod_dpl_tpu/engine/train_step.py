@@ -214,9 +214,9 @@ def make_lora_train_step(
     (``models/modules/full_model.py:47-72`` — peft r=2 alpha=4 on q/k/v):
     pixels -> LoRA-adapted DINO key features -> the same stage-1 student
     loss; gradients flow to BOTH the decoder and the adapters (the dense
-    backbone stays frozen via stop_gradient).  The backbone forward keeps
-    the packed Pallas attention (its flash VJP, ops/attention.py) and
-    rematerialises layer activations.
+    backbone stays frozen via stop_gradient).  The backbone's attention is
+    differentiated by its own implementation's backward (cuDNN's on the
+    GPU, ops/attention.py), and layer activations follow the remat mode.
 
     ``sp_shard``: optional ``(Mesh, axis)`` — run the adapted backbone
     sequence-parallel (ring attention, ``parallel/sp.py``); the ring

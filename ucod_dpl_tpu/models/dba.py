@@ -1,9 +1,9 @@
-"""Dual-Branch Adversarial (DBA) decoder — TPU-native rebuild of the
+"""Dual-Branch Adversarial (DBA) decoder — JAX rebuild of the
 reference ``RevDecoder`` (``models/modules/DBA.py:5-59``).
 
-Pure functions over an explicit parameter pytree.  Layout is NHWC (TPU
-native); every 1x1 convolution is expressed as a channel matmul so the whole
-forward is a handful of MXU contractions XLA fuses with the gating math.
+Pure functions over an explicit parameter pytree.  Layout is NHWC; every
+1x1 convolution is expressed as a channel matmul so the whole forward is a
+handful of contractions XLA fuses with the gating math.
 
 The orthogonality loss is algebraically reformulated: the reference
 materialises the (B, L, L) branch Gram matrix (L = H*W = 4624 at the 68x68

@@ -1,7 +1,7 @@
 """DINO ViT feature extractor in pure JAX (DINOv1 `dino-vitb8` and DINOv2
 `dinov2-base` architectures).
 
-TPU-native rebuild of the reference's HuggingFace-hook feature extractor
+Rebuild of the reference's HuggingFace-hook feature extractor
 (``data/utils/feature_extractor.py:31-59``): instead of a forward hook on the
 last attention block's ``key`` Linear, the forward pass *returns* the last
 block's key projection directly, plus (optionally) the CLS-row attention
@@ -11,9 +11,9 @@ probabilities of the last layer needed by pseudo-label generation
 
 Design:
   * pure functions over an explicit params pytree; f32 params, configurable
-    compute dtype (bf16 on TPU);
-  * attention runs through :mod:`ucod_dpl_tpu.ops.attention` (Pallas flash
-    kernel on TPU, fused-einsum fallback elsewhere);
+    compute dtype (bf16 on the GPU, ``ucod_dpl_tpu.device``);
+  * attention runs through :mod:`ucod_dpl_tpu.ops.attention` (cuDNN flash
+    attention on the GPU, XLA's attention elsewhere);
   * position embeddings are bicubic-interpolated exactly like HF
     (``modeling_dinov2.interpolate_pos_encoding``) so cached features are
     interchangeable with the torch pipeline;
@@ -32,13 +32,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ucod_dpl_tpu.ops.attention import multi_head_attention
-from ucod_dpl_tpu.ops.fused_layers import (
-    dense_quant_w8a8,
-    layernorm_fc1_gelu_w8a8,
-    layernorm_mlp_w8a8,
-    layernorm_qkv,
-    layernorm_qkv_w8a8,
-)
 from ucod_dpl_tpu.ops.resize import interpolate_bicubic
 
 HI = jax.lax.Precision.HIGHEST
@@ -217,8 +210,6 @@ def export_hf_state_dict(params: Dict[str, Any], cfg: DinoConfig) -> Dict[str, n
         fc1, fc2 = "intermediate.dense", "output.dense"
 
     sd: Dict[str, np.ndarray] = {
-        # ascontiguousarray matters: safetensors serialises the raw buffer,
-        # so a transpose VIEW would be written with its pre-transpose layout
         "embeddings.patch_embeddings.projection.weight": np.ascontiguousarray(
             np.transpose(n(params["patch_embed"]["kernel"]), (3, 2, 0, 1))  # HWIO -> OIHW
         ),
@@ -273,7 +264,7 @@ def load_hf_checkpoint(path: str, cfg: DinoConfig) -> Dict[str, Any]:
         else:
             raise FileNotFoundError(f"No model weights found under {path}")
     if path.endswith(".safetensors"):
-        from safetensors.numpy import load_file
+        from ucod_dpl_tpu.models.safetensors_io import load_file
 
         sd = load_file(path)
     else:
@@ -304,14 +295,23 @@ def _layernorm(x: jnp.ndarray, p: Dict[str, jnp.ndarray], eps: float) -> jnp.nda
 
 def _dense(x: jnp.ndarray, p: Dict[str, jnp.ndarray], dtype) -> jnp.ndarray:
     if dtype == jnp.bfloat16:
-        # bf16-native epilogue: MXU still accumulates in f32 internally, but
-        # the activation is written once in bf16 (halves HBM traffic vs a
-        # f32 output + separate downcast; ~25% end-to-end on the 518px path)
+        # bf16-native epilogue: the matmul still accumulates in f32, but the
+        # activation is written once in bf16 (half the device-memory traffic
+        # of an f32 output plus a separate downcast)
         return jnp.dot(x, p["w"].astype(dtype)) + p["b"].astype(dtype)
     return (
         jnp.dot(x, p["w"].astype(dtype), preferred_element_type=jnp.float32).astype(dtype)
         + p["b"].astype(dtype)
     )
+
+
+def _qkv_concat(h: jnp.ndarray, layer: Dict[str, Any], dtype):
+    """q, k, v from ONE (D, 3D) GEMM on the LayerNorm output — faster end to
+    end than three (D, D) GEMMs on the H100 (PERF.md, "Kernel decisions on
+    H100"); the concatenated weight is built per call, a few MB."""
+    w = jnp.concatenate([layer[t]["w"] for t in ("q", "k", "v")], axis=1)
+    b = jnp.concatenate([layer[t]["b"] for t in ("q", "k", "v")])
+    return tuple(jnp.split(_dense(h, {"w": w, "b": b}, dtype), 3, axis=-1))
 
 
 def interpolate_pos_embed(
@@ -377,8 +377,8 @@ def dino_forward(
         parity contract runs unsharded) and with ``quant``.
       quant: optional pytree from :func:`ucod_dpl_tpu.ops.quant.
         quantize_dino_linears` — routes every transformer-layer linear
-        (q/k/v/out/fc1/fc2, and the key_fold matmul) through the int8
-        W8A8 MXU path.  Opt-in inference-only path (serving/bench);
+        (q/k/v/out/fc1/fc2, and the key_fold matmul) through int8 W8A8
+        matmuls with int32 accumulation.  Opt-in inference-only path (serving/bench);
         incompatible with ``tp_shard`` (GSPMD-sharded weights) and with
         ``want_cls_attention`` (pseudo-label generation is a bitwise
         parity contract).
@@ -435,16 +435,12 @@ def dino_forward(
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
     dtype = compute_dtype
 
-    # Patch embed: the naive 14x14/s14 conv on 3 channels runs far off its
-    # roofline (XLA pads the tiny channel dim; 0.83ms at bs16@518px).  When
-    # the width divides the patch size, the contiguous (W, C) tail reshapes
-    # FREELY to (W/p, p*C) — grouping each patch row's p pixels x C channels
-    # into one 42-lane block — and the patch embed becomes a (p, 1)-kernel
-    # conv over 42 input channels: same math (kernel reshaped to match the
-    # (kw, c) lane order), no host-visible transpose, 0.45ms measured
-    # (scripts/microbench/bench_patch_embed2.py).  Earlier variants
-    # (reshape+matmul, 6-D einsum, Pallas) all lost to the transpose or were
-    # rejected by Mosaic — this one has no transpose to lose to.
+    # Patch embed: when the width divides the patch size, the contiguous
+    # (W, C) tail reshapes freely to (W/p, p*C) — each patch row's p pixels
+    # x C channels in one 42-wide block — and the patch embed becomes a
+    # (p, 1)-kernel conv over 42 input channels: the same math (kernel
+    # reshaped to match the (kw, c) order) without the 3-channel conv's
+    # padding of its tiny channel dim, and with no transpose.
     pe = params["patch_embed"]["kernel"].astype(dtype)
     px = pixels.astype(dtype)
     if img_w % cfg.patch_size == 0:
@@ -503,47 +499,21 @@ def dino_forward(
 
     def layer_fn(x, layer, is_last: bool):
         aux: Dict[str, jnp.ndarray] = {}
-        # LayerNorm + q/k/v in ONE Pallas kernel on TPU (x read from HBM
-        # once, normalised in-register; 0.53 -> 0.42ms/layer).  A fused
-        # (768 -> 2304) qkv matmul feeding attention via lane-offset
-        # BlockSpecs was measured 4x SLOWER (strided k/v DMA out of the wide
-        # packed array) — three separate outputs it is.  The TP path keeps
-        # the unfused composition: its weights are GSPMD-sharded and the
-        # kernel would see partial columns.
-        # the LAST layer stays unfused: the fused kernel is opaque to XLA, so
-        # feature-extraction programs (which consume only this layer's k)
-        # could no longer dead-code-eliminate its q/v projections, attention
-        # and MLP — that DCE is worth more than the fusion.
-        if "_q8" in layer and not is_last:
-            # int8 W8A8 path, FUSED: LayerNorm + per-token quantization +
-            # the three projections in the MXU's int8 mode, one kernel
-            # (ops/fused_layers.py::layernorm_qkv_w8a8) — the normalised
-            # activations are quantized in-register and never hit HBM.
-            # Without this the int8 path paid the unfused composition the
-            # bf16 path's layernorm_qkv exists to avoid, giving back most
-            # of the 2x-MXU win (measured: composed int8 was +6% over bf16).
-            q, k, v = layernorm_qkv_w8a8(
-                x, layer["norm1"],
-                layer["_q8"]["q"], layer["_q8"]["k"], layer["_q8"]["v"],
-                cfg.layer_norm_eps,
-            )
-        elif "_q8" in layer:
-            # last layer stays unfused for the same DCE reason as bf16:
-            # feature-extraction programs consume only k and must be able
-            # to dead-code-eliminate q/v.  The shared input is quantized
-            # once, explicitly (XLA's CSE would dedupe it anyway — clarity)
-            h = _layernorm(x, layer["norm1"], cfg.layer_norm_eps)
+        h = _layernorm(x, layer["norm1"], cfg.layer_norm_eps)
+        if "_q8" in layer:
+            # int8 W8A8: the shared LayerNorm output is quantized once for
+            # the three projections
             h_q, h_s = quantize_act(h)
             q = dense_w8a8_pre(h_q, h_s, layer["_q8"]["q"], dtype)
             k = dense_w8a8_pre(h_q, h_s, layer["_q8"]["k"], dtype)
             v = dense_w8a8_pre(h_q, h_s, layer["_q8"]["v"], dtype)
         elif tp_shard is None and sp_shard is None and not is_last:
-            q, k, v = layernorm_qkv(
-                x, layer["norm1"], layer["q"], layer["k"], layer["v"],
-                cfg.layer_norm_eps,
-            )
+            q, k, v = _qkv_concat(h, layer, dtype)
         else:
-            h = _layernorm(x, layer["norm1"], cfg.layer_norm_eps)
+            # three separate projections: the last layer's, because
+            # feature-extraction programs use only its k and XLA then drops
+            # its q and v; and under TP/SP, whose column-sharded weights a
+            # concatenation would have to regather
             q = _dense(h, layer["q"], dtype)
             k = _dense(h, layer["k"], dtype)
             v = _dense(h, layer["v"], dtype)
@@ -582,59 +552,32 @@ def dino_forward(
         else:
             attn = multi_head_attention(q, k, v, cfg.num_heads, scale=scale)
         if "_q8" in layer:
-            # fused quantize+dot: the flash kernel's bf16 output is read
-            # once, quantized in-register, and hits the MXU int8 mode —
-            # ops/quant.dense_w8a8 would round-trip the int8 codes via HBM.
-            # UCOD_INT8_UNFUSED_OUTPROJ=1: A/B escape hatch (read at trace
-            # time; scripts/microbench/bench_int8_outproj.py)
-            if os.environ.get("UCOD_INT8_UNFUSED_OUTPROJ", "") == "1":
-                attn = dense_w8a8(attn, layer["_q8"]["out"], dtype)
-            else:
-                attn = dense_quant_w8a8(attn, layer["_q8"]["out"], dtype)
+            attn = dense_w8a8(attn, layer["_q8"]["out"], dtype)
         else:
             attn = _dense(attn, layer["out"], dtype)
         if cfg.use_layerscale:
             attn = attn * layer["ls1"].astype(dtype)
         x = x + attn
 
-        # NOTE: an ln2+fc1+gelu Pallas fusion (ops/fused_layers.py:
-        # layernorm_fc1_gelu) wins standalone (0.55 -> 0.49ms) but LOSES in
-        # the composed layer (486 -> 455 img/s end-to-end): XLA fuses the
-        # preceding ls1-scale + residual add into ln2's consumer, and the
-        # kernel boundary forces that chain to materialise.  Unfused here.
         if "_q8" in layer:
-            # int8 MLP half, FUSED: LN + per-token quant + int8 fc1 + gelu
-            # + re-quantization in one kernel — the (L, 4D) hidden expansion
-            # leaves it already int8, so fc2 is a bare int8 MXU dot.  gelu
-            # is tanh-approx on BOTH backends here (kernel == fallback;
-            # ~1e-3 approximation error, far below the quantization noise).
-            # UCOD_INT8_WHOLE_MLP=1 routes the WHOLE half (incl. fc2)
-            # through one kernel instead (layernorm_mlp_w8a8) — measured
-            # 6.4% SLOWER at ViT-B bs32@518px (573 vs 612 img/s,
-            # scripts/microbench/bench_int8_mlp.py): co-residing both
-            # weight matrices + the (bq, 4D) intermediates forces the
-            # q-block from 256 down to 128, and the smaller MXU tiles cost
-            # more than the saved (L, 4D) int8 HBM round-trip.  The split
-            # stays default; the flag remains for narrower models where
-            # the whole half fits at a full-size block.
-            if os.environ.get("UCOD_INT8_WHOLE_MLP", "") == "1":
-                h2 = layernorm_mlp_w8a8(
-                    x, layer["norm2"], layer["_q8"]["fc1"],
-                    layer["_q8"]["fc2"], cfg.layer_norm_eps,
-                )
-            else:
-                h1_q, s1 = layernorm_fc1_gelu_w8a8(
-                    x, layer["norm2"], layer["_q8"]["fc1"], cfg.layer_norm_eps
-                )
-                h2 = dense_w8a8_pre(h1_q, s1, layer["_q8"]["fc2"], dtype)
+            # int8 MLP: gelu is tanh-approximate here at every precision
+            # (~1e-3 off exact erf, far below the int8 quantization noise)
+            h2 = _layernorm(x, layer["norm2"], cfg.layer_norm_eps)
+            h_q, h_s = quantize_act(h2)
+            g = jax.nn.gelu(
+                dense_w8a8_pre(h_q, h_s, layer["_q8"]["fc1"], jnp.float32),
+                approximate=True,
+            )
+            g_q, g_s = quantize_act(g)
+            h2 = dense_w8a8_pre(g_q, g_s, layer["_q8"]["fc2"], dtype)
         else:
             h2 = _layernorm(x, layer["norm2"], cfg.layer_norm_eps)
             h2 = _dense(h2, layer["fc1"], dtype)
             if dtype == jnp.bfloat16:
-                # tanh-approx GELU in bf16: the exact-erf/f32 variant costs
-                # ~10x (1.0ms vs 0.1ms per layer at bs16@518px) for a ~1e-3
-                # activation difference — far below bf16 noise. The f32 path
-                # keeps exact erf for bit-parity with the HF reference.
+                # tanh-approx GELU in bf16: a ~1e-3 activation difference,
+                # far below bf16 noise, for a much cheaper elementwise pass.
+                # The f32 path keeps exact erf for bit-parity with the HF
+                # reference.
                 h2 = jax.nn.gelu(h2, approximate=True)
             else:
                 h2 = jax.nn.gelu(
@@ -651,22 +594,10 @@ def dino_forward(
     #                   highest memory);
     #   True/"layer"  — full layer-granularity remat: only block inputs
     #                   saved, the whole layer forward re-executes in the
-    #                   backward (~+1 fwd of MXU work);
-    #   "dots"        — policy remat: MATMUL outputs are saved, only
-    #                   elementwise chains (LN, gelu, residual adds) replay —
-    #                   the backward's extra FLOPs drop from a full forward
-    #                   to VPU-only work, for ~40% of the no-remat memory
-    #                   (the flash-attention VJP keeps its own q/k/v/o+lse
-    #                   residuals either way; policies cannot see inside a
-    #                   custom_vjp).
-    # Measured on v5e (scripts/microbench/bench_lora_remat.py), LoRA joint
-    # step.  bs16@518px: layer 123.7 ms (14.9 TF executed) / dots 121.2
-    # (12.7 TF) / none 109.7 (11.6 TF).  bs16@756px: layer 744.1 (42.5 TF)
-    # / none 673.0 (35.2 TF) / dots OOMs HBM (15.97G of 15.75G) — the
-    # policy forces every dot output saved in f32, HEAVIER than no-remat's
-    # bf16-dominated liveness, so "dots" is NOT a middle ground here: use
-    # "none" when the shape fits (wins ~10-11% at both resolutions),
-    # "layer" (the safe default) when it doesn't.
+    #                   backward (~+1 forward of matmul work);
+    #   "dots"        — policy remat: matmul outputs are saved, only
+    #                   elementwise chains (LN, gelu, residual adds) replay.
+    # None of them has been timed on the H100 (not measured).
     if isinstance(remat, str):
         if remat in ("none", ""):
             run_layer = layer_fn
@@ -699,8 +630,7 @@ def dino_forward(
                 folded = dense_w8a8(h, quantize_linear({"w": fw, "b": fb}), dtype)
             else:
                 # mirror _dense's accumulation contract: f32 accumulation in
-                # the f32 parity path (default TPU f32 matmuls drop to bf16
-                # passes)
+                # the f32 parity path
                 folded = _dense(h, {"w": fw, "b": fb}, dtype)
             # [1:seq_len]: drop CLS and (under sp_shard) the ring padding
             out["folded_features"] = folded[:, 1:seq_len, :].reshape(

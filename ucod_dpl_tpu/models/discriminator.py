@@ -1,4 +1,4 @@
-"""Adversarial mask discriminator — TPU-native rebuild of the reference
+"""Adversarial mask discriminator — JAX rebuild of the reference
 ``Discriminator`` (``models/discriminator.py:73-95``).
 
 Architecture: ConvBlock(mask 1->32, 3x3 s1) [+ optional feature branch],
@@ -53,7 +53,7 @@ def _conv_block(
 ) -> Tuple[jnp.ndarray, Dict[str, Any]]:
     # im2col patches + matmul instead of lax.conv for narrow layers:
     # differentiating a direct conv w.r.t. its WEIGHTS emits a
-    # backprop-filter convolution that hard-crashes XLA:TPU's
+    # backprop-filter convolution that crashed an XLA backend's
     # space-to-batch pass at small batch sizes ("Check failed:
     # PropagateOnBackpropFilterConv ... Operands to select must be the same
     # shape", space_to_batch_converter.cc) — seen with bs=2 at 68x68.  With

@@ -72,19 +72,10 @@ def lora_forward(dino_params, lora, pixels, cfg, rank: int = 2, alpha: float = 4
     """Forward through the LoRA-adapted backbone.
 
     Differentiable w.r.t. ``lora`` only when ``dino_params`` is wrapped in
-    ``jax.lax.stop_gradient`` by the caller (the base stays frozen).
-
-    Traced inside :class:`~ucod_dpl_tpu.ops.attention.differentiable_mode`:
-    the packed Pallas attention KEEPS its kernel (it carries a flash
-    backward, ``ops/attention.py::_pallas_attention_packed_bwd``); only the
-    VJP-less fused LayerNorm+QKV reroutes to its XLA equivalent."""
+    ``jax.lax.stop_gradient`` by the caller (the base stays frozen)."""
     from ucod_dpl_tpu.models.dino import dino_forward
-    from ucod_dpl_tpu.ops.attention import differentiable_mode
 
-    with differentiable_mode():
-        return dino_forward(
-            apply_lora(dino_params, lora, rank, alpha), pixels, cfg, **kwargs
-        )
+    return dino_forward(apply_lora(dino_params, lora, rank, alpha), pixels, cfg, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +102,7 @@ def save_lora_checkpoint(path: str, lora: List[Dict[str, Any]]) -> None:
 
 
 def load_lora_checkpoint(path: str) -> List[Dict[str, Any]]:
-    from safetensors.numpy import load_file
+    from ucod_dpl_tpu.models.safetensors_io import load_file
 
     flat = load_file(path)
     n_layers = 1 + max(int(k.split(".")[1]) for k in flat)

@@ -5,20 +5,113 @@ contain 14 fp32 tensors: ``decoder{,_ema}.decoupling.{weight,bias}``,
 ``...conv_out_{fg,bg}.{weight,bias}`` and ``...learnable_embedding`` —
 verified against the reference's save path (``runner.py:165-185``).
 
-This module converts between that torch-layout checkpoint (OIHW conv kernels)
-and our NHWC/matmul parameter pytrees, in both directions, so checkpoints are
-interchangeable with the PyTorch reference.
+This module reads and writes the safetensors format with numpy alone
+(:func:`load_file`, :func:`save_file`), and converts between that
+torch-layout checkpoint (OIHW conv kernels) and our NHWC/matmul parameter
+pytrees, in both directions, so checkpoints are interchangeable with the
+PyTorch reference.
+
+The format: an 8-byte little-endian header length N, N bytes of JSON
+mapping each tensor name to ``{"dtype", "shape", "data_offsets": [begin,
+end]}`` (offsets into the byte buffer that follows the header; an optional
+``"__metadata__"`` entry holds strings), then the raw little-endian,
+C-order tensor bytes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import json
+import struct
+from typing import Dict, Optional, Tuple
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
-from safetensors.numpy import load_file, save_file
 
 from .dba import RevDecoderParams
+
+_DTYPES = {
+    "F64": np.dtype("<f8"),
+    "F32": np.dtype("<f4"),
+    "F16": np.dtype("<f2"),
+    "BF16": np.dtype(ml_dtypes.bfloat16),
+    "I64": np.dtype("<i8"),
+    "I32": np.dtype("<i4"),
+    "I16": np.dtype("<i2"),
+    "I8": np.dtype("i1"),
+    "U8": np.dtype("u1"),
+    "BOOL": np.dtype("?"),
+}
+_CODES = {dt: code for code, dt in _DTYPES.items()}
+
+
+def load_file(path: str) -> Dict[str, np.ndarray]:
+    """Read every tensor of a safetensors file into numpy arrays.  Raises
+    ``ValueError`` on a malformed file (bad header, unknown dtype, offsets
+    outside the buffer or disagreeing with the shape)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if len(raw) < 8:
+        raise ValueError(f"{path}: not a safetensors file (shorter than its header length)")
+    (n,) = struct.unpack("<Q", raw[:8])
+    if n > len(raw) - 8:
+        raise ValueError(f"{path}: header length {n} exceeds the file size {len(raw)}")
+    try:
+        header = json.loads(raw[8 : 8 + n])
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"{path}: unreadable safetensors header ({e})") from e
+    if not isinstance(header, dict):
+        raise ValueError(f"{path}: safetensors header is not a JSON object")
+    buf = memoryview(raw)[8 + n :]
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        try:
+            dt = _DTYPES[info["dtype"]]
+            shape = tuple(int(d) for d in info["shape"])
+            begin, end = (int(o) for o in info["data_offsets"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"{path}: bad header entry for {name!r}: {info!r}") from e
+        count = int(np.prod(shape, dtype=np.int64))
+        if not 0 <= begin <= end <= len(buf) or end - begin != count * dt.itemsize:
+            raise ValueError(
+                f"{path}: tensor {name!r} offsets {begin}:{end} do not hold "
+                f"{shape} {info['dtype']} inside a {len(buf)}-byte buffer"
+            )
+        out[name] = np.frombuffer(buf[begin:end], dtype=dt).reshape(shape).copy()
+    return out
+
+
+def save_file(
+    tensors: Dict[str, np.ndarray], path: str, metadata: Optional[Dict[str, str]] = None
+) -> None:
+    """Write numpy arrays as a safetensors file (C-order, little-endian;
+    non-contiguous views are copied into C order first)."""
+    header: Dict[str, object] = {}
+    if metadata:
+        header["__metadata__"] = dict(metadata)
+    chunks, offset = [], 0
+    for name in sorted(tensors):
+        arr = np.asarray(tensors[name], order="C")
+        dt = arr.dtype.newbyteorder("<") if arr.dtype.byteorder == ">" else arr.dtype
+        if dt not in _CODES:
+            raise ValueError(f"safetensors has no dtype for {name!r}: {arr.dtype}")
+        data = arr.astype(dt, copy=False).tobytes()
+        header[name] = {
+            "dtype": _CODES[dt],
+            "shape": list(arr.shape),
+            "data_offsets": [offset, offset + len(data)],
+        }
+        chunks.append(data)
+        offset += len(data)
+    hb = json.dumps(header, separators=(",", ":")).encode()
+    hb += b" " * (-len(hb) % 8)  # the data buffer starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for data in chunks:
+            f.write(data)
 
 
 def _tower_from_flat(flat: Dict[str, np.ndarray], prefix: str) -> RevDecoderParams:
@@ -44,7 +137,6 @@ def _tower_from_flat(flat: Dict[str, np.ndarray], prefix: str) -> RevDecoderPara
 
 def _tower_to_flat(params: RevDecoderParams, prefix: str) -> Dict[str, np.ndarray]:
     def np32(x):
-        # contiguity matters: safetensors serialises the raw buffer
         return np.ascontiguousarray(np.asarray(x, dtype=np.float32))
 
     def conv_oihw(w):
@@ -68,7 +160,7 @@ def load_decoder_checkpoint(path: str) -> Tuple[RevDecoderParams, RevDecoderPara
 
 
 def save_file_atomic(flat, path: str) -> None:
-    """safetensors save via temp + os.replace.
+    """:func:`save_file` via temp + os.replace.
 
     Auto-resume picks the NEWEST epoch*.safetensors by mtime with no
     fallback, so a crash/OOM-kill mid-write must never leave a truncated

@@ -1,6 +1,6 @@
 """UDLR SparseRefiner (CORAL stage 2) — EntropySelector + HRE/CSF + GatedEnsembler.
 
-TPU-native rebuild of ``models/UDLR.py``, ``models/modules/{ASR,HRE,CSF,
+JAX rebuild of ``models/UDLR.py``, ``models/modules/{ASR,HRE,CSF,
 GE_pix_level}.py`` and the cross-attention block of ``models/modules/mlp.py``.
 
 Key redesign (SURVEY §7.7): the reference gathers a *ragged* set of
@@ -370,7 +370,7 @@ def _set_nested(d, path, value):
 
 def load_refiner_checkpoint(path: str, num_heads: int = 8) -> Dict[str, Any]:
     """Load a reference-format SparseRefiner safetensors checkpoint."""
-    from safetensors.numpy import load_file
+    from ucod_dpl_tpu.models.safetensors_io import load_file
 
     flat = load_file(path)
     missing = [name for name in _NAME_MAP if name not in flat]

@@ -1,10 +1,3 @@
-from .fused_layers import (
-    dense_quant_w8a8,
-    layernorm_fc1_gelu_w8a8,
-    layernorm_mlp_w8a8,
-    layernorm_qkv,
-    layernorm_qkv_w8a8,
-)
 from .quant import dense_w8a8, quantize_dino_linears, quantize_linear
 from .resize import (
     adaptive_avg_pool2d,
@@ -21,9 +14,4 @@ __all__ = [
     "quantize_linear",
     "quantize_dino_linears",
     "dense_w8a8",
-    "dense_quant_w8a8",
-    "layernorm_qkv",
-    "layernorm_qkv_w8a8",
-    "layernorm_fc1_gelu_w8a8",
-    "layernorm_mlp_w8a8",
 ]

@@ -1,950 +1,32 @@
-"""Multi-head attention for the DINO ViT — Pallas TPU kernel with XLA fallback.
+"""Multi-head attention for the DINO ViT.
 
-The ViT forward is the throughput-dominant computation of the whole framework
-(feature cache build + LookTwice re-inference, SURVEY §3.5).  Sequence
-lengths are short-to-moderate (1370 tokens @518px/14, 2917 @756px/14), head
-dim 64: whole K/V for one (batch, head) fits VMEM comfortably, so the kernel
-keeps K/V resident and streams query blocks — one softmax per tile, two MXU
-matmuls, no HBM round-trip for the (L, L) score matrix.
+One call, ``jax.nn.dot_product_attention``, on the free (B, L, heads,
+head_dim) view of the packed (B, L, D) projections.  On the GPU in bf16 it
+runs cuDNN's fused flash attention (forward and backward), so the (L, L)
+scores never reach device memory; float32 and the CPU take XLA's attention.
+The choice is made in :func:`ucod_dpl_tpu.device.attention_implementation`
+from the platform, the dtype and the head width — never from a flag — and a
+shape cuDNN refuses raises instead of switching implementation.
 
-Numerics match the HF eager path: logits scaled by 1/sqrt(head_dim) and
-softmax in float32.
+ViT sequence lengths (1370, 2917, 5477 at 518/756/1036px) are used as they
+are: no padding, so no padded rows exist whose contents could reach the
+output.
+
+:func:`_xla_attention` is the plain reference the tests and the on-card
+smoke compare against.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-
-def _ceil_to(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _attention_kernel(q_ref, k_ref, v_ref, o_ref, *, seq_len: int, scale: float):
-    # q/k stay in their storage dtype (bf16 on TPU) so the MXU runs at its
-    # bf16 rate; accumulation is f32 via preferred_element_type.
-    q = q_ref[0]  # (bq, d)
-    k = k_ref[0]  # (Lp, d)
-    v = v_ref[0]
-    lp = k.shape[0]
-    if lp != seq_len:
-        # V tail rows beyond seq_len hold garbage when composed with
-        # on-device producers (XLA tile padding — see the headpair kernel
-        # note); 0 * Inf = NaN would contaminate the PV accumulation even
-        # though their softmax weight is exactly 0.  The score-side garbage
-        # is already handled by the SELECT mask below (where() replaces
-        # masked lanes regardless of value).
-        rows = jax.lax.broadcasted_iota(jnp.int32, (lp, 1), 0)
-        v = jnp.where(rows < seq_len, v, jnp.zeros((), v.dtype))
-    s = (
-        jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-        )
-        * scale
-    )  # (bq, Lp) f32
-    col = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1)
-    s = jnp.where(col < seq_len, s, -jnp.inf)
-    p = jax.nn.softmax(s, axis=-1)
-    o = jax.lax.dot_general(
-        p.astype(v.dtype),
-        v,
-        (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    o_ref[0] = o.astype(o_ref.dtype)
-
-
-_LOG2E = float(np.log2(np.e))
-
-
-_SOFTMAX_SHIFT = 30.0  # log2 units; see shift-invariant softmax note below
-
-
-def _env_flag(name: str) -> bool:
-    """Boolean env flag: unset, empty, '0', 'false'/'no' (any case) are off."""
-    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no")
-
-
-def _rowmax_softmax() -> bool:
-    """UCOD_ATTN_ROWMAX_SOFTMAX=1 restores the row-max-subtracted softmax
-    (two extra full-tile VPU passes) — a debugging escape hatch for inputs
-    outside the documented logit guard band.
-
-    The flag is threaded into :func:`_pallas_attention_packed` as a STATIC
-    jit argument, so toggling it mid-process forces a retrace — an
-    already-compiled same-shape program never silently keeps the stale
-    kernel."""
-    return _env_flag("UCOD_ATTN_ROWMAX_SOFTMAX")
-
-
-def _attention_kernel_headpair(
-    q_ref, k_ref, v_ref, o_ref, *, seq_len: int, scale: float, head_dim: int,
-    rowmax: bool,
-):
-    """Two heads per program: blocks carry 2*head_dim (=128) lanes to satisfy
-    the TPU lane-tiling constraint; each head attends independently.
-
-    Measured design choices (bs16 @ 518px, v5e — scripts/bench_attention*.py,
-    bench_attention5.py, bench_attention7.py):
-      * scale folded into q (head_dim cols) instead of the score matrix
-        (Lp cols): 22x fewer VPU multiplies;
-      * softmax denominator folded into the output (divide (bq, hd), not
-        (bq, Lp));
-      * both heads' outputs concatenated into ONE 128-lane store (a 64-lane
-        sliced store is a masked half-width write);
-      * boundary mask as a (1, Lp) row broadcast-ADDED into the score tile
-        (one pass) instead of a full-tile iota+compare+select (three);
-      * log2(e) folded into the q-scale so the softmax runs on exp2 directly;
-      * shift-invariant softmax: exp2(s - C)/sum(exp2(s - C)) is EXACT for
-        any constant C, so the row-max reduce + subtract passes are replaced
-        by folding C=-30 into the mask row (zero extra ops).  Guard band:
-        overflow needs a scaled logit > 157 log2-units (natural ~109), a
-        zero denominator needs ALL of a row's logits < ~-103 (natural -71);
-        DINOv2-B extremes are ~30 — >2x margin, and a breach is a loud
-        Inf/NaN, never a silent wrong answer.  UCOD_ATTN_ROWMAX_SOFTMAX=1
-        restores the row-max path;
-      * exp2 emitted directly in bf16: the PV matmul consumed bf16 anyway —
-        this removes the separate f32->bf16 full-tile cast pass; the
-        denominator accumulates in f32 (adds ~0.4% relative error, the same
-        order as the pre-existing bf16 PV rounding).
-    together: 2.04ms -> 1.38ms (round 2) -> 1.10ms (round 3) -> 0.98ms
-    (round 4) for the full 12-head call — at the 50%-MXU-utilisation floor
-    set by head_dim 64."""
-    mask_row = None
-    outs = []
-    qscale = scale * _LOG2E
-    lp = k_ref.shape[1]
-    # Sanitise the K/V tail rows (seq_len..Lp): when the kernel composes
-    # with on-device producers, XLA leaves GARBAGE (arbitrary bf16 bit
-    # patterns, including +-Inf/NaN) in the physical tile padding beyond
-    # seq_len — it only materialises rows it computed.  A garbage K column
-    # makes s = +-Inf there, and Inf + (-inf mask) = NaN, which the
-    # denominator sum then spreads across the whole row; garbage V rows
-    # similarly feed 0 * Inf = NaN into PV.  Zeroing the tails (one cheap
-    # (Lp, 128) select each — 1.5% the size of a score-tile pass) keeps the
-    # additive mask row exact: s_tail = 0, 0 + (-inf) = -inf, exp2 -> 0.
-    # (Standalone host-fed inputs have zeroed pads, which is why only
-    # composed programs ever saw this.)
-    kv_valid = None
-    if lp != seq_len:
-        rows = jax.lax.broadcasted_iota(jnp.int32, (lp, 1), 0)
-        kv_valid = rows < seq_len
-    for h in range(2):
-        sl = slice(h * head_dim, (h + 1) * head_dim)
-        q = (q_ref[0][:, sl].astype(jnp.float32) * qscale).astype(q_ref.dtype)
-        k = k_ref[0][:, sl]  # (Lp, hd)
-        v = v_ref[0][:, sl]
-        if kv_valid is not None:
-            k = jnp.where(kv_valid, k, jnp.zeros((), k.dtype))
-            v = jnp.where(kv_valid, v, jnp.zeros((), v.dtype))
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-        )
-        if mask_row is None:
-            cols = jax.lax.broadcasted_iota(jnp.int32, (1, s.shape[1]), 1)
-            valid = 0.0 if rowmax else -_SOFTMAX_SHIFT
-            mask_row = jnp.where(cols < seq_len, valid, -jnp.inf).astype(jnp.float32)
-        s = s + mask_row
-        if rowmax:
-            m = jnp.max(s, axis=-1, keepdims=True)
-            p = jnp.exp2(s - m)
-        else:
-            p = jnp.exp2(s).astype(v_ref.dtype)
-        denom = jnp.sum(p, axis=-1, keepdims=True, dtype=jnp.float32)
-        o = jax.lax.dot_general(
-            p.astype(v_ref.dtype),
-            v,
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        outs.append(o / denom)
-    o_ref[0] = jnp.concatenate(outs, axis=-1).astype(o_ref.dtype)
-
-
-@functools.lru_cache(maxsize=1)
-def _score_budget_bytes() -> int:
-    """f32 score-tile VMEM budget for :func:`_pick_q_block` (forward).
-
-    The v5e scoped-vmem limit is 16MB (measured: a 19.8MB backward
-    allocation fails to compile with "exceeded scoped vmem limit"); the
-    forward's worst case — the 8.7MB score tile at 756px plus ~4.5MB of
-    resident K/V and Q/O blocks — fits it, validated on the dev chip.
-    v2/v3 cores have 16MB TOTAL VMEM with less headroom for Mosaic's
-    double-buffering — gate the tile budget down to 8MB there (an overrun
-    is a loud compile error, never silent)."""
-    try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        return 16 * 1024 * 1024
-    if "v2" in kind or "v3" in kind:
-        return 8 * 1024 * 1024
-    return 16 * 1024 * 1024
-
-
-def _pick_q_block(lp: int, score_budget_bytes: int | None = None) -> int:
-    """Largest q block whose f32 score tile (block_q, lp) fits the VMEM
-    budget. Whole-q programs measure fastest at 518px (lp=1408, 7.9MB tile):
-    fewer grid steps, one resident K/V fetch.  At 756px (lp=2944) the 16MB
-    budget picks block 736 (8.7MB tile) — 9.5% faster than the old 8MB
-    budget's 368, with 1472 (17.3MB) measured slightly worse
-    (scripts/microbench/bench_attention_756.py)."""
-    if score_budget_bytes is None:
-        score_budget_bytes = _score_budget_bytes()
-    n = 1
-    while lp % n or (lp // n) % 16 or lp * (lp // n) * 4 > score_budget_bytes:
-        n += 1
-    return lp // n
-
-
-@functools.partial(jax.jit, static_argnames=("scale", "block_q"))
-def _pallas_attention(q_h, k_h, v_h, scale: float, block_q: int = 256):
-    """q_h/k_h/v_h: (BH, L, d) per-head layout.  No explicit padding — see
-    :func:`_pallas_attention_packed`."""
-    bh, seq_len, d = q_h.shape
-    lp = _ceil_to(seq_len, block_q)
-    padded = lp != seq_len and _needs_host_padding()
-    if padded:  # the (CPU-hosted) interpreter lacks Mosaic's boundary masking
-        q_h, k_h, v_h = (
-            jnp.pad(x, [(0, 0), (0, lp - seq_len), (0, 0)]) for x in (q_h, k_h, v_h)
-        )
-    out_len = lp if padded else seq_len
-
-    grid = (bh, lp // block_q)
-    out = pl.pallas_call(
-        functools.partial(_attention_kernel, seq_len=seq_len, scale=scale),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, block_q, d), lambda b, i: (b, i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lp, d), lambda b, i: (b, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lp, d), lambda b, i: (b, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, block_q, d), lambda b, i: (b, i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((bh, out_len, d), q_h.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * bh * lp * lp * d,
-            bytes_accessed=3 * bh * lp * d * q_h.dtype.itemsize + bh * lp * d * q_h.dtype.itemsize,
-            transcendentals=bh * lp * lp,
-        ),
-        interpret=_interpret(),
-    )(q_h, k_h, v_h)
-    return out[:, :seq_len, :] if padded else out
-
-
-@functools.partial(jax.jit, static_argnames=("num_heads", "scale", "rowmax"))
-def _pallas_attention_packed(q, k, v, num_heads: int, scale: float, rowmax: bool = False):
-    """Attention straight on the packed (B, L, D) projection layout.
-
-    Head pairs are sliced by BlockSpec index maps (grid (B, nh/2, nq)) with
-    128-lane blocks (TPU tiling constraint), so the (B, L, nh, hd)
-    split/merge transposes — six 33MB materialisations per layer at
-    bs16@518px — never touch HBM.  Requires an even head count and
-    head_dim*2 multiple of 128 (ViT-B: 12 heads x 64); callers fall back to
-    the per-head layout otherwise.
-
-    No host/HBM padding: block shapes need not divide the sequence — Mosaic
-    masks the boundary block itself, the iota mask kills out-of-range key
-    columns, and out-of-range query rows never reach the output.  The three
-    explicit jnp.pads this replaces were ~200MB of pure HBM copy per layer
-    at bs16@518px (0.24ms measured, bit-identical output).  The virtual
-    length is padded to a multiple of 128 only (1370 -> 1408, not a fixed
-    256 block's 1536: masked key columns still cost matmul) and the q block
-    is the largest that keeps the f32 score tile within VMEM."""
-    b, seq_len, d_model = q.shape
-    hd = d_model // num_heads
-    assert num_heads % 2 == 0 and (2 * hd) % 128 == 0
-    lp = _ceil_to(seq_len, 128)
-    block_q = _pick_q_block(lp)
-    padded = lp != seq_len and _needs_host_padding()
-    if padded:
-        # the Pallas interpreter (env flag or force_tpu_interpret_mode, both
-        # CPU-hosted) does not mask boundary blocks like Mosaic does; pad
-        # explicitly there (correctness-only path, speed irrelevant)
-        q, k, v = (jnp.pad(x, [(0, 0), (0, lp - seq_len), (0, 0)]) for x in (q, k, v))
-    out_len = lp if padded else seq_len
-
-    grid = (b, num_heads // 2, lp // block_q)
-    out = pl.pallas_call(
-        functools.partial(
-            _attention_kernel_headpair, seq_len=seq_len, scale=scale, head_dim=hd,
-            rowmax=rowmax,
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (1, block_q, 2 * hd), lambda bb, h, i: (bb, i, h), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, lp, 2 * hd), lambda bb, h, i: (bb, 0, h), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, lp, 2 * hd), lambda bb, h, i: (bb, 0, h), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, block_q, 2 * hd), lambda bb, h, i: (bb, i, h), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((b, out_len, d_model), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * b * num_heads * lp * lp * hd,
-            bytes_accessed=4 * b * lp * d_model * q.dtype.itemsize,
-            transcendentals=b * num_heads * lp * lp,
-        ),
-        interpret=_interpret(),
-    )(q, k, v)
-    return out[:, :seq_len, :] if padded else out
-
-
-def _attention_kernel_headpair_stats(
-    q_ref, k_ref, v_ref, o_ref, den_ref, *, seq_len: int, scale: float,
-    head_dim: int,
-):
-    """Forward kernel variant for DIFFERENTIATED long-L paths: identical
-    attention math to :func:`_attention_kernel_headpair` (rowmax=False
-    scheme), plus the per-query softmax DENOMINATOR as a second output —
-    the residual the KV-blocked long-L backward normalises with.
-
-    Two deliberate differences from the inference kernel, both confined to
-    the differentiated path:
-      * ``exp2`` is computed in f32 and the denominator accumulated from
-        the f32 terms BEFORE the bf16 cast for the PV matmul — the saved
-        denominator is then bit-identical to what the backward's f32
-        recompute ``sum(exp2(s))`` produces, so the backward's probability
-        normalisation is exact (reusing the inference kernel's
-        bf16-accumulated denominator would skew every gradient ~0.4%);
-      * the denominator leaves broadcast over an 8-lane output block
-        (lanes 0:4 head0, 4:8 head1) — the same Mosaic lane-legality
-        layout as the fused-fc1 scale output (a (bq,) lane dim would be
-        illegal; see ops/pallas_legality.py).
-    """
-    lp = k_ref.shape[1]
-    kv_valid = None
-    if lp != seq_len:
-        rows = jax.lax.broadcasted_iota(jnp.int32, (lp, 1), 0)
-        kv_valid = rows < seq_len
-    qscale = scale * _LOG2E
-    mask_row = None
-    outs, dens = [], []
-    for h in range(2):
-        sl = slice(h * head_dim, (h + 1) * head_dim)
-        q = (q_ref[0][:, sl].astype(jnp.float32) * qscale).astype(q_ref.dtype)
-        k = k_ref[0][:, sl]
-        v = v_ref[0][:, sl]
-        if kv_valid is not None:
-            k = jnp.where(kv_valid, k, jnp.zeros((), k.dtype))
-            v = jnp.where(kv_valid, v, jnp.zeros((), v.dtype))
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-        )
-        if mask_row is None:
-            cols = jax.lax.broadcasted_iota(jnp.int32, (1, s.shape[1]), 1)
-            mask_row = jnp.where(
-                cols < seq_len, -_SOFTMAX_SHIFT, -jnp.inf
-            ).astype(jnp.float32)
-        p32 = jnp.exp2(s + mask_row)  # f32 — the denominator's source
-        denom = jnp.sum(p32, axis=-1, keepdims=True)
-        o = jax.lax.dot_general(
-            p32.astype(v_ref.dtype),
-            v,
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        outs.append(o / denom)
-        dens.append(jnp.broadcast_to(denom, (denom.shape[0], 4)))
-    o_ref[0] = jnp.concatenate(outs, axis=-1).astype(o_ref.dtype)
-    den_ref[0, 0] = jnp.concatenate(dens, axis=-1)
-
-
-@functools.partial(jax.jit, static_argnames=("num_heads", "scale"))
-def _pallas_attention_packed_stats(q, k, v, num_heads: int, scale: float):
-    """Packed forward + per-query softmax denominators (B, nh/2, L, 8):
-    the VJP forward for sequences too long for the whole-KV backward."""
-    b, seq_len, d_model = q.shape
-    hd = d_model // num_heads
-    assert num_heads % 2 == 0 and (2 * hd) % 128 == 0
-    lp = _ceil_to(seq_len, 128)
-    # the stats kernel keeps its probability tile in F32 (the denominator
-    # must accumulate from f32 terms), where the plain bf16 forward emits
-    # exp2 directly in bf16 — so its VMEM usage per q-block is ~1.61x one
-    # f32 score tile (measured: Lp=2944/block 736 compiles at ~14M
-    # effective; Lp=5504/block 688 fails at 24.42M of 16M) — budget the
-    # block pick at 58% of the forward's tile budget (same picks at
-    # 518/756px; 5504 drops 688 -> 344 and compiles)
-    block_q = _pick_q_block(lp, int(_score_budget_bytes() * 0.58))
-    padded = lp != seq_len and _needs_host_padding()
-    if padded:
-        q, k, v = (jnp.pad(x, [(0, 0), (0, lp - seq_len), (0, 0)]) for x in (q, k, v))
-    out_len = lp if padded else seq_len
-
-    grid = (b, num_heads // 2, lp // block_q)
-    out, den = pl.pallas_call(
-        functools.partial(
-            _attention_kernel_headpair_stats,
-            seq_len=seq_len, scale=scale, head_dim=hd,
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (1, block_q, 2 * hd), lambda bb, h, i: (bb, i, h), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, lp, 2 * hd), lambda bb, h, i: (bb, 0, h), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, lp, 2 * hd), lambda bb, h, i: (bb, 0, h), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, block_q, 2 * hd), lambda bb, h, i: (bb, i, h), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, 1, block_q, 8), lambda bb, h, i: (bb, h, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, out_len, d_model), q.dtype),
-            jax.ShapeDtypeStruct((b, num_heads // 2, out_len, 8), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * b * num_heads * lp * lp * hd,
-            bytes_accessed=4 * b * lp * d_model * q.dtype.itemsize,
-            transcendentals=b * num_heads * lp * lp,
-        ),
-        interpret=_interpret(),
-    )(q, k, v)
-    if padded:
-        out, den = out[:, :seq_len, :], den[:, :, :seq_len, :]
-    return out, den
-
-
-# ---------------------------------------------------------------------------
-# backward (flash-attention VJP for the packed kernel)
-# ---------------------------------------------------------------------------
-
-
-def _attention_bwd_kernel_headpair(
-    q_ref, k_ref, v_ref, o_ref, do_ref, dq_ref, dk_ref, dv_ref, *,
-    seq_len: int, scale: float, head_dim: int, block_q: int,
-):
-    """Recompute-based flash backward, two heads per program.
-
-    Grid (B, nh/2, nq): each program recomputes its (block_q, Lp) softmax
-    tile with the same shift-invariant exp2 scheme as the forward (exact for
-    any constant shift), emits its dQ block directly, and ACCUMULATES the
-    dK/dV partials into per-(batch, head-pair) output blocks — the q grid
-    dimension is absent from the dk/dv index maps, so the same block is
-    revisited across q steps ("arbitrary" semantics; initialised at q==0).
-
-    Standard flash algebra per q block:
-        P  = softmax(scale * q k^T)        (recomputed, never stored in HBM)
-        D  = rowsum(dO ∘ O)
-        dS = P ∘ (dP - D),  dP = dO V^T
-        dQ = scale * dS K,  dK += scale * dS^T Q,  dV += P^T dO
-
-    Garbage hygiene mirrors the forward kernel: K/V tail rows beyond seq_len
-    are zeroed (composed on-device operands carry XLA tile-padding garbage),
-    masked key columns get the -inf+shift row, and the boundary q block's
-    out-of-range Q/O/dO rows are zeroed so they contribute nothing to the
-    dK/dV accumulation."""
-    lp = k_ref.shape[1]
-    qi = pl.program_id(2)
-
-    @pl.when(qi == 0)
-    def _init():
-        dk_ref[...] = jnp.zeros_like(dk_ref)
-        dv_ref[...] = jnp.zeros_like(dv_ref)
-
-    qscale = scale * _LOG2E
-    bq = q_ref.shape[1]
-    # validity of this block's q rows (global row < seq_len)
-    grows = qi * block_q + jax.lax.broadcasted_iota(jnp.int32, (bq, 1), 0)
-    q_valid = grows < seq_len
-    kv_valid = None
-    if lp != seq_len:
-        rows = jax.lax.broadcasted_iota(jnp.int32, (lp, 1), 0)
-        kv_valid = rows < seq_len
-    cols = jax.lax.broadcasted_iota(jnp.int32, (1, lp), 1)
-    mask_row = jnp.where(cols < seq_len, -_SOFTMAX_SHIFT, -jnp.inf).astype(jnp.float32)
-
-    dq_parts, dk_parts, dv_parts = [], [], []
-    for h in range(2):
-        sl = slice(h * head_dim, (h + 1) * head_dim)
-        q_raw = jnp.where(q_valid, q_ref[0][:, sl], jnp.zeros((), q_ref.dtype))
-        o_blk = jnp.where(q_valid, o_ref[0][:, sl], jnp.zeros((), o_ref.dtype))
-        do_blk = jnp.where(q_valid, do_ref[0][:, sl], jnp.zeros((), do_ref.dtype))
-        k = k_ref[0][:, sl]
-        v = v_ref[0][:, sl]
-        if kv_valid is not None:
-            k = jnp.where(kv_valid, k, jnp.zeros((), k.dtype))
-            v = jnp.where(kv_valid, v, jnp.zeros((), v.dtype))
-
-        qs = (q_raw.astype(jnp.float32) * qscale).astype(q_ref.dtype)
-        s = jax.lax.dot_general(
-            qs, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-        ) + mask_row
-        p_un = jnp.exp2(s)  # f32 for gradient accuracy
-        denom = jnp.sum(p_un, axis=-1, keepdims=True)
-        p = p_un / denom  # (bq, Lp) normalised probabilities
-
-        d_row = jnp.sum(
-            do_blk.astype(jnp.float32) * o_blk.astype(jnp.float32),
-            axis=-1, keepdims=True,
-        )
-        dp = jax.lax.dot_general(
-            do_blk, v, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-        )  # (bq, Lp)
-        ds = (p * (dp - d_row) * scale).astype(q_ref.dtype)
-
-        dq_parts.append(
-            jax.lax.dot_general(
-                ds, k, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
-            )
-        )
-        # dS^T Q and P^T dO without explicit transposes: contract the bq dim
-        dk_parts.append(
-            jax.lax.dot_general(
-                ds, q_raw, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-        )
-        dv_parts.append(
-            jax.lax.dot_general(
-                p.astype(do_ref.dtype), do_blk, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-        )
-
-    dq_ref[0] = jnp.concatenate(dq_parts, axis=-1).astype(dq_ref.dtype)
-    dk_ref[0] = dk_ref[0] + jnp.concatenate(dk_parts, axis=-1).astype(dk_ref.dtype)
-    dv_ref[0] = dv_ref[0] + jnp.concatenate(dv_parts, axis=-1).astype(dv_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("num_heads", "scale"))
-def _pallas_attention_packed_bwd(q, k, v, o, do, num_heads: int, scale: float):
-    """(dq, dk, dv) in float32 for the packed (B, L, D) layout."""
-    b, seq_len, d_model = q.shape
-    hd = d_model // num_heads
-    lp = _ceil_to(seq_len, 128)
-    block_q = _bwd_block_q(lp, jnp.dtype(q.dtype).itemsize)
-    assert block_q is not None, (
-        f"flash backward infeasible at Lp={lp} (scoped-vmem law) — the VJP "
-        "wrapper should have taken the XLA fallback"
-    )
-    padded = lp != seq_len and _needs_host_padding()
-    if padded:  # interpreter lacks Mosaic's boundary masking (see forward)
-        q, k, v, o, do = (
-            jnp.pad(x, [(0, 0), (0, lp - seq_len), (0, 0)]) for x in (q, k, v, o, do)
-        )
-    out_len = lp if padded else seq_len
-
-    grid = (b, num_heads // 2, lp // block_q)
-    blk = lambda bb, h, i: (bb, i, h)
-    whole = lambda bb, h, i: (bb, 0, h)
-    dq, dk, dv = pl.pallas_call(
-        functools.partial(
-            _attention_bwd_kernel_headpair,
-            seq_len=seq_len, scale=scale, head_dim=hd, block_q=block_q,
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, block_q, 2 * hd), blk, memory_space=pltpu.VMEM),   # q
-            pl.BlockSpec((1, lp, 2 * hd), whole, memory_space=pltpu.VMEM),      # k
-            pl.BlockSpec((1, lp, 2 * hd), whole, memory_space=pltpu.VMEM),      # v
-            pl.BlockSpec((1, block_q, 2 * hd), blk, memory_space=pltpu.VMEM),   # o
-            pl.BlockSpec((1, block_q, 2 * hd), blk, memory_space=pltpu.VMEM),   # do
-        ],
-        out_specs=[
-            pl.BlockSpec((1, block_q, 2 * hd), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lp, 2 * hd), whole, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lp, 2 * hd), whole, memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            # dq is written ONCE per block (no accumulation), and the VJP
-            # wrapper downcasts it to the primal dtype anyway — emitting it
-            # in q.dtype directly halves its HBM write (same final bits).
-            # dk/dv stay f32: they are revisited accumulators, and rounding
-            # each of the q-step partial sums to bf16 would be a real
-            # precision change.
-            jax.ShapeDtypeStruct((b, out_len, d_model), q.dtype),
-            jax.ShapeDtypeStruct((b, out_len, d_model), jnp.float32),
-            jax.ShapeDtypeStruct((b, out_len, d_model), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            # the q dimension accumulates into the shared dk/dv blocks and
-            # must run sequentially
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=10 * b * num_heads * lp * lp * hd,
-            bytes_accessed=5 * b * lp * d_model * q.dtype.itemsize
-            + b * lp * d_model * (q.dtype.itemsize + 2 * 4),
-            transcendentals=b * num_heads * lp * lp,
-        ),
-        interpret=_interpret(),
-    )(q, k, v, o, do)
-    if padded:
-        dq, dk, dv = (x[:, :seq_len, :] for x in (dq, dk, dv))
-    return dq, dk, dv
-
-
-def _bwd_block_q(lp: int, itemsize: int):
-    """Backward q-block for the v5e 16MB scoped-vmem limit, or None when no
-    block fits.
-
-    Empirical affine law from compiler OOM reports at lp=1408 f32
-    (19.84M @ block 704, 16.13M @ block 352): usage ≈ FIXED(lp) + 3 f32
-    score-tile slope, where FIXED ≈ 17 (f32-operand) / 12 (bf16-operand)
-    (lp, 128)-f32-equivalent buffers — resident K/V, the dK/dV
-    accumulators with their read-modify-write temps, the jnp.where
-    tail-zeroing copies, and Mosaic double-buffering.  Budget 15MB keeps a
-    ~1MB margin under the observed 16MB hard limit."""
-    fixed = 512 * lp * (17 if itemsize == 4 else 12)
-    # mirror the forward's generation gate (_score_budget_bytes): v2/v3
-    # have 16MB TOTAL VMEM, so the 15MB-against-16MB-scoped-limit law of
-    # v5e would pick blocks that cannot compile there — halve the budget
-    # (overruns are loud compile errors, but the point of this law is to
-    # take the XLA fallback instead of crashing)
-    budget_mb = 15.0 if _score_budget_bytes() >= 16 * 1024 * 1024 else 7.0
-    budget = int(budget_mb * 1024 * 1024) - fixed
-    if budget < 16 * 3 * 4 * lp:  # not even a 16-row block fits
-        return None
-    n = 1
-    while lp % n or (lp // n) % 16 or (lp // n) * 3 * 4 * lp > budget:
-        n += 1
-    return lp // n
-
-
-def _bwd2d_prelude(
-    q_ref, k_ref, v_ref, o_ref, do_ref, den_ref, *, seq_len, scale, head_dim,
-    block_q, block_k, qi, kvi, h,
-):
-    """Shared recompute for the two long-L backward kernels: one head's
-    (block_q, block_k) probability tile from the SAVED denominator, plus the
-    ds tile of the flash backward algebra.  Returns (q_raw, do_blk, p, ds).
-
-    Garbage hygiene: K/V tail rows are zeroed (composed operands carry XLA
-    tile-padding garbage — Inf/NaN would poison s before the additive mask
-    can kill it), invalid key columns get the -inf+shift mask row, and
-    invalid QUERY rows are pinned to p == 0 explicitly (their saved
-    denominator is undefined, so even zeroed do rows could produce inf * 0
-    = NaN through the division)."""
-    bq, bk = block_q, block_k
-    sl = slice(h * head_dim, (h + 1) * head_dim)
-    grows = qi * bq + jax.lax.broadcasted_iota(jnp.int32, (bq, 1), 0)
-    q_valid = grows < seq_len
-    q_raw = jnp.where(q_valid, q_ref[0][:, sl], jnp.zeros((), q_ref.dtype))
-    o_blk = jnp.where(q_valid, o_ref[0][:, sl], jnp.zeros((), o_ref.dtype))
-    do_blk = jnp.where(q_valid, do_ref[0][:, sl], jnp.zeros((), do_ref.dtype))
-    k = k_ref[0][:, sl]
-    v = v_ref[0][:, sl]
-    krows = kvi * bk + jax.lax.broadcasted_iota(jnp.int32, (bk, 1), 0)
-    kv_valid = krows < seq_len
-    k = jnp.where(kv_valid, k, jnp.zeros((), k.dtype))
-    v = jnp.where(kv_valid, v, jnp.zeros((), v.dtype))
-
-    qscale = scale * _LOG2E
-    qs = (q_raw.astype(jnp.float32) * qscale).astype(q_ref.dtype)
-    s = jax.lax.dot_general(
-        qs, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )
-    kcols = kvi * bk + jax.lax.broadcasted_iota(jnp.int32, (1, bk), 1)
-    mask_row = jnp.where(kcols < seq_len, -_SOFTMAX_SHIFT, -jnp.inf).astype(
-        jnp.float32
-    )
-    p32 = jnp.exp2(s + mask_row)
-    den = den_ref[0, 0][:, 4 * h : 4 * h + 1]  # (bq, 1) f32, saved by the fwd
-    p = jnp.where(q_valid, p32 / den, 0.0)
-
-    d_row = jnp.sum(
-        do_blk.astype(jnp.float32) * o_blk.astype(jnp.float32),
-        axis=-1, keepdims=True,
-    )
-    dp = jax.lax.dot_general(
-        do_blk, v, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )
-    ds = (p * (dp - d_row) * scale).astype(q_ref.dtype)
-    return q_raw, do_blk, k, p, ds
-
-
-def _bwd2d_dq_kernel(
-    q_ref, k_ref, v_ref, o_ref, do_ref, den_ref, dq_ref, *,
-    seq_len: int, scale: float, head_dim: int, block_q: int, block_k: int,
-):
-    """Long-L backward, dQ half: grid (B, nh/2, nq, nkv) with the KV
-    dimension INNERMOST, so each dq block accumulates its k-chunk partials
-    consecutively ("arbitrary" semantics, initialised at kv==0).  Per-tile
-    VMEM is (block_q x block_k) — no whole-L buffer exists, which is what
-    the whole-KV kernel's scoped-vmem law could not provide at 756px+."""
-    kvi = pl.program_id(3)
-
-    @pl.when(kvi == 0)
-    def _init():
-        dq_ref[...] = jnp.zeros_like(dq_ref)
-
-    qi = pl.program_id(2)
-    parts = []
-    for h in range(2):
-        _, _, k, _, ds = _bwd2d_prelude(
-            q_ref, k_ref, v_ref, o_ref, do_ref, den_ref,
-            seq_len=seq_len, scale=scale, head_dim=head_dim,
-            block_q=block_q, block_k=block_k, qi=qi, kvi=kvi, h=h,
-        )
-        parts.append(
-            jax.lax.dot_general(
-                ds, k, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-        )
-    dq_ref[0] = dq_ref[0] + jnp.concatenate(parts, axis=-1).astype(dq_ref.dtype)
-
-
-def _bwd2d_dkv_kernel(
-    q_ref, k_ref, v_ref, o_ref, do_ref, den_ref, dk_ref, dv_ref, *,
-    seq_len: int, scale: float, head_dim: int, block_q: int, block_k: int,
-):
-    """Long-L backward, dK/dV half: grid (B, nh/2, nkv, nq) with the Q
-    dimension innermost — each dk/dv block accumulates every q-chunk's
-    contribution consecutively while its k/v chunk stays resident."""
-    qi = pl.program_id(3)
-
-    @pl.when(qi == 0)
-    def _init():
-        dk_ref[...] = jnp.zeros_like(dk_ref)
-        dv_ref[...] = jnp.zeros_like(dv_ref)
-
-    kvi = pl.program_id(2)
-    dk_parts, dv_parts = [], []
-    for h in range(2):
-        q_raw, do_blk, _, p, ds = _bwd2d_prelude(
-            q_ref, k_ref, v_ref, o_ref, do_ref, den_ref,
-            seq_len=seq_len, scale=scale, head_dim=head_dim,
-            block_q=block_q, block_k=block_k, qi=qi, kvi=kvi, h=h,
-        )
-        dk_parts.append(
-            jax.lax.dot_general(
-                ds, q_raw, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-        )
-        dv_parts.append(
-            jax.lax.dot_general(
-                p.astype(do_blk.dtype), do_blk, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-        )
-    dk_ref[0] = dk_ref[0] + jnp.concatenate(dk_parts, axis=-1).astype(dk_ref.dtype)
-    dv_ref[0] = dv_ref[0] + jnp.concatenate(dv_parts, axis=-1).astype(dv_ref.dtype)
-
-
-def _pick_2d_blocks(lp: int):
-    """(block_q, block_k) for the long-L backward.
-
-    Measured law (756px sweep, scripts/microbench/bench_longl_blocks.py):
-    the binding constraint is the PAIR of live f32 (bq, bk) tiles (p and
-    ds) — bq*bk <= ~1.1M elements (~9MB) compiles and bigger fails the
-    scoped-vmem limit; within that budget, BIGGER tiles win monotonically
-    ((368,736) 22.8ms -> (736,736) 19.6 -> (736,1472)/(1472,736) 19.0;
-    skinny shapes lose: (1472,184) 34.0).  So: bq = largest divisor of lp
-    <= 768 (balanced-ish), bk = largest divisor keeping bq*bk <= 1.1M."""
-
-    def pick(cap):
-        n = 1
-        while lp % n or (lp // n) % 16 or lp // n > cap:
-            n += 1
-        return lp // n
-
-    bq = pick(768)
-    bk = pick(max(128, (1_100_000 // max(bq, 1)) & ~15))
-    return bq, bk
-
-
-@functools.partial(jax.jit, static_argnames=("num_heads", "scale"))
-def _pallas_attention_packed_bwd_longl(
-    q, k, v, o, do, den, num_heads: int, scale: float
-):
-    """(dq, dk, dv) via the KV-blocked (2D) flash backward — the long-L
-    path for sequences where the whole-KV kernel's resident K/V + dK/dV
-    accumulators exceed scoped VMEM (``_bwd_block_q`` returns None; 756px
-    f32 AND bf16).  Splits into a dQ kernel and a dK/dV kernel so every
-    accumulator is revisited consecutively in its own grid; probabilities
-    are recomputed per tile from the forward's SAVED f32 denominators
-    (``_pallas_attention_packed_stats``), so no full-row reduction — and
-    no whole-L buffer — exists anywhere.  Costs one extra score+dp
-    recompute (+4 BL²D) vs the whole-KV kernel; replaces an XLA fallback
-    that materialised the (B, nh, L, L) probability matrix in HBM."""
-    b, seq_len, d_model = q.shape
-    hd = d_model // num_heads
-    lp = _ceil_to(seq_len, 128)
-    bq, bk = _pick_2d_blocks(lp)
-    padded = lp != seq_len and _needs_host_padding()
-    if padded:
-        q, k, v, o, do = (
-            jnp.pad(x, [(0, 0), (0, lp - seq_len), (0, 0)]) for x in (q, k, v, o, do)
-        )
-        den = jnp.pad(den, [(0, 0), (0, 0), (0, lp - seq_len), (0, 0)],
-                      constant_values=1.0)
-    out_len = lp if padded else seq_len
-
-    kw = dict(seq_len=seq_len, scale=scale, head_dim=hd, block_q=bq, block_k=bk)
-    qblk = lambda bb, h, i, j: (bb, i, h)
-    kblk = lambda bb, h, i, j: (bb, j, h)
-    dblk = lambda bb, h, i, j: (bb, h, i, 0)
-    in_specs_dq = [
-        pl.BlockSpec((1, bq, 2 * hd), qblk, memory_space=pltpu.VMEM),   # q
-        pl.BlockSpec((1, bk, 2 * hd), kblk, memory_space=pltpu.VMEM),   # k
-        pl.BlockSpec((1, bk, 2 * hd), kblk, memory_space=pltpu.VMEM),   # v
-        pl.BlockSpec((1, bq, 2 * hd), qblk, memory_space=pltpu.VMEM),   # o
-        pl.BlockSpec((1, bq, 2 * hd), qblk, memory_space=pltpu.VMEM),   # do
-        pl.BlockSpec((1, 1, bq, 8), dblk, memory_space=pltpu.VMEM),     # den
-    ]
-    dq = pl.pallas_call(
-        functools.partial(_bwd2d_dq_kernel, **kw),
-        grid=(b, num_heads // 2, lp // bq, lp // bk),
-        in_specs=in_specs_dq,
-        out_specs=pl.BlockSpec((1, bq, 2 * hd), qblk, memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, out_len, d_model), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=6 * b * num_heads * lp * lp * hd,
-            bytes_accessed=4 * b * lp * d_model * q.dtype.itemsize
-            + b * lp * d_model * 4,
-            transcendentals=b * num_heads * lp * lp,
-        ),
-        interpret=_interpret(),
-    )(q, k, v, o, do, den)
-
-    # the dK/dV grid swaps which dimension is innermost: index maps see
-    # (bb, h, j, i) with j = kv block, i = q block
-    qblk2 = lambda bb, h, j, i: (bb, i, h)
-    kblk2 = lambda bb, h, j, i: (bb, j, h)
-    dblk2 = lambda bb, h, j, i: (bb, h, i, 0)
-    in_specs_dkv = [
-        pl.BlockSpec((1, bq, 2 * hd), qblk2, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, bk, 2 * hd), kblk2, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, bk, 2 * hd), kblk2, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, bq, 2 * hd), qblk2, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, bq, 2 * hd), qblk2, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 1, bq, 8), dblk2, memory_space=pltpu.VMEM),
-    ]
-    dk, dv = pl.pallas_call(
-        functools.partial(_bwd2d_dkv_kernel, **kw),
-        grid=(b, num_heads // 2, lp // bk, lp // bq),
-        in_specs=in_specs_dkv,
-        out_specs=[
-            pl.BlockSpec((1, bk, 2 * hd), kblk2, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bk, 2 * hd), kblk2, memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, out_len, d_model), jnp.float32),
-            jax.ShapeDtypeStruct((b, out_len, d_model), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=8 * b * num_heads * lp * lp * hd,
-            bytes_accessed=4 * b * lp * d_model * q.dtype.itemsize
-            + 2 * b * lp * d_model * 4,
-            transcendentals=b * num_heads * lp * lp,
-        ),
-        interpret=_interpret(),
-    )(q, k, v, o, do, den)
-    if padded:
-        dq, dk, dv = (x[:, :seq_len, :] for x in (dq, dk, dv))
-    return dq, dk, dv
-
-
-def _xla_attention_packed_bwd(q, k, v, o, do, num_heads: int, scale: float):
-    """XLA-math backward for the packed layout: used when the flash backward
-    kernel cannot fit VMEM (very long sequences, e.g. 756px f32) — the
-    (B, nh, L, L) probability matrix materialises in HBM instead."""
-    b, l, d_model = q.shape
-    hd = d_model // num_heads
-
-    def heads(x):
-        return x.reshape(b, l, num_heads, hd).transpose(0, 2, 1, 3)
-
-    qh, kh, vh, oh, doh = (heads(x).astype(jnp.float32) for x in (q, k, v, o, do))
-    s = jnp.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
-    p = jax.nn.softmax(s, axis=-1)
-    dp = jnp.einsum("bhqd,bhkd->bhqk", doh, vh)
-    d_row = jnp.sum(doh * oh, axis=-1, keepdims=True)
-    ds = p * (dp - d_row) * scale
-    dq = jnp.einsum("bhqk,bhkd->bhqd", ds, kh)
-    dk = jnp.einsum("bhqk,bhqd->bhkd", ds, qh)
-    dv = jnp.einsum("bhqk,bhqd->bhkd", p, doh)
-
-    def merge(x):
-        return x.transpose(0, 2, 1, 3).reshape(b, l, d_model)
-
-    return merge(dq), merge(dk), merge(dv)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5))
-def _packed_attention_diff(q, k, v, num_heads: int, scale: float, rowmax: bool):
-    """Packed Pallas attention with a flash-attention VJP: differentiated
-    paths (LoRA fine-tuning through the backbone) keep the kernel instead of
-    falling back to XLA attention + remat."""
-    return _pallas_attention_packed(q, k, v, num_heads, scale, rowmax=rowmax)
-
-
-def _packed_attention_diff_fwd(q, k, v, num_heads, scale, rowmax):
-    lp = _ceil_to(q.shape[1], 128)
-    # long-L: the whole-KV backward cannot fit scoped VMEM (756px+) — run
-    # the stats forward so the KV-blocked backward gets its saved f32
-    # denominators.  (rowmax forwards keep the plain kernel: their backward
-    # is the row-max-stable XLA fallback either way.)
-    if not rowmax and _bwd_block_q(lp, jnp.dtype(q.dtype).itemsize) is None:
-        o, den = _pallas_attention_packed_stats(q, k, v, num_heads, scale)
-        return o, (q, k, v, o, den)
-    o = _pallas_attention_packed(q, k, v, num_heads, scale, rowmax=rowmax)
-    return o, (q, k, v, o, None)
-
-
-def _packed_attention_diff_bwd(num_heads, scale, rowmax, res, do):
-    q, k, v, o, den = res
-    lp = _ceil_to(q.shape[1], 128)
-    # rowmax=True means the forward needed row-max-subtracted softmax (the
-    # fixed-shift guard band was breached); the flash backward recomputes
-    # softmax with the fixed shift and would overflow on exactly those
-    # inputs — use the XLA backward, whose jax.nn.softmax recompute is
-    # row-max-stable and matches the rowmax forward semantics.
-    if rowmax:
-        dq, dk, dv = _xla_attention_packed_bwd(q, k, v, o, do, num_heads, scale)
-    elif den is not None:
-        # long-L: KV-blocked flash backward on the saved denominators —
-        # replaces the XLA fallback that materialised (B, nh, L, L) in HBM
-        dq, dk, dv = _pallas_attention_packed_bwd_longl(
-            q, k, v, o, do, den, num_heads, scale
-        )
-    elif _bwd_block_q(lp, jnp.dtype(q.dtype).itemsize) is None:
-        dq, dk, dv = _xla_attention_packed_bwd(q, k, v, o, do, num_heads, scale)
-    else:
-        dq, dk, dv = _pallas_attention_packed_bwd(q, k, v, o, do, num_heads, scale)
-    return dq.astype(q.dtype), dk.astype(k.dtype), dv.astype(v.dtype)
-
-
-_packed_attention_diff.defvjp(_packed_attention_diff_fwd, _packed_attention_diff_bwd)
+from ucod_dpl_tpu.device import attention_implementation
 
 
 def _xla_attention(q_h, k_h, v_h, scale: float):
+    """Reference attention on the per-head (B*heads, L, head_dim) layout:
+    f32 scores and softmax, probabilities cast back to the input dtype."""
     s = (
         jnp.einsum("bqd,bkd->bqk", q_h, k_h, preferred_element_type=jnp.float32)
         * scale
@@ -955,82 +37,24 @@ def _xla_attention(q_h, k_h, v_h, scale: float):
     )
 
 
-def _interpret() -> bool:
-    """UCOD_PALLAS_INTERPRET=1 runs the kernels through the Pallas
-    interpreter on any backend — used by the multi-chip dryrun to exercise
-    the exact kernel path per shard_map shard without TPU hardware."""
-    if _assume_mosaic():
-        return False
-    return _env_flag("UCOD_PALLAS_INTERPRET")
-
-
-def _assume_mosaic() -> bool:
-    """UCOD_ASSUME_MOSAIC=1: trace the kernels exactly as they would trace on
-    a real TPU (Pallas path taken, NO host-side padding, interpret=False) on
-    any backend.  For ABSTRACT tracing only (``jax.eval_shape``): executing
-    the resulting program off-TPU would fail.  Used by the static Mosaic
-    block-legality validator (ops/pallas_legality.py) so the CPU suite sees
-    the same BlockSpec/array-shape pairs Mosaic will be asked to lower —
-    the interpret-green/chip-broken hole BENCH_r04 exposed."""
-    return _env_flag("UCOD_ASSUME_MOSAIC")
-
-
-def _needs_host_padding() -> bool:
-    """Kernels need explicit host-side padding wherever Mosaic's boundary
-    masking is absent: the (CPU-hosted) Pallas interpreter and non-TPU
-    backends.  On real TPU (or when statically tracing as-if-TPU) block
-    shapes need not divide the sequence."""
-    if _assume_mosaic():
-        return False
-    return _interpret() or jax.default_backend() != "tpu"
-
-
-_DIFFERENTIABLE_DEPTH = 0
-
-
-class differentiable_mode:
-    """Context manager: trace a forward that will be differentiated.
-
-    The packed attention kernel now carries its own flash-attention VJP
-    (:func:`_packed_attention_diff`) and STAYS on the Pallas path here; this
-    context only reroutes the kernels that have no VJP rule — the fused
-    LayerNorm+QKV (``ops/fused_layers.py``) and the per-head fallback
-    layout — to their differentiable XLA equivalents.  Paths that
-    differentiate through the backbone (LoRA adaptation) must trace their
-    forwards inside this context.  (Trace-time switch: the flag is read
-    while jit traces.)"""
-
-    def __enter__(self):
-        global _DIFFERENTIABLE_DEPTH
-        _DIFFERENTIABLE_DEPTH += 1
-        return self
-
-    def __exit__(self, *exc):
-        global _DIFFERENTIABLE_DEPTH
-        _DIFFERENTIABLE_DEPTH -= 1
-        return False
-
-
-def _pallas_available() -> bool:
-    """Hardware/interpreter gate alone, ignoring differentiability."""
-    if _env_flag("UCOD_DISABLE_PALLAS"):
-        return False
-    if _interpret() or _assume_mosaic():
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def use_pallas() -> bool:
-    """Gate for kernels WITHOUT a VJP rule (fused LN+QKV, per-head layout):
-    off inside differentiable_mode.  The packed attention path checks
-    :func:`_pallas_available` directly — its custom VJP makes it safe to
-    differentiate."""
-    if _DIFFERENTIABLE_DEPTH > 0:
-        return False
-    return _pallas_available()
+def multi_head_attention(
+    q: jnp.ndarray,
+    k: jnp.ndarray,
+    v: jnp.ndarray,
+    num_heads: int,
+    *,
+    scale: float,
+) -> jnp.ndarray:
+    """(B, L, D) q/k/v projections -> (B, L, D) attention output.
+    Differentiable (cuDNN and XLA both carry a backward)."""
+    b, l, d_model = q.shape
+    hd = d_model // num_heads
+    impl = attention_implementation(q.dtype, hd)
+    heads = lambda x: x.reshape(b, l, num_heads, hd)  # noqa: E731 — a free view
+    o = jax.nn.dot_product_attention(
+        heads(q), heads(k), heads(v), scale=float(scale), implementation=impl
+    )
+    return o.reshape(b, l, d_model)
 
 
 def tp_multi_head_attention(
@@ -1045,9 +69,9 @@ def tp_multi_head_attention(
 ) -> jnp.ndarray:
     """Tensor-parallel attention: D (=heads) sharded over ``axis``.
 
-    Attention is head-local, so each shard runs the kernel on its own head
-    slice with ZERO communication — shard_map keeps GSPMD from gathering the
-    full projection. Requires num_heads divisible by the axis size."""
+    Attention is head-local, so each shard runs on its own head slice with
+    no communication — shard_map keeps GSPMD from gathering the full
+    projection.  Requires num_heads divisible by the axis size."""
     tp = mesh.shape[axis]
     if tp == 1:
         return multi_head_attention(q, k, v, num_heads, scale=scale)
@@ -1061,43 +85,7 @@ def tp_multi_head_attention(
 
     return jax.shard_map(
         local_attn, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec,
-        # pallas_call out_shapes don't carry vma annotations; the kernel is
-        # head-local so there is nothing varying to check
+        # the cuDNN custom call's output carries no varying-axes annotation;
+        # the computation is head-local, so there is nothing varying to check
         check_vma=False,
     )(q, k, v)
-
-
-def multi_head_attention(
-    q: jnp.ndarray,
-    k: jnp.ndarray,
-    v: jnp.ndarray,
-    num_heads: int,
-    *,
-    scale: float,
-) -> jnp.ndarray:
-    """(B, L, D) q/k/v projections -> (B, L, D) attention output."""
-    b, l, d_model = q.shape
-    hd = d_model // num_heads
-
-    if (
-        _pallas_available()
-        and num_heads % 2 == 0
-        and (2 * hd) % 128 == 0
-        # UCOD_ATTN_XLA_VJP=1: debugging escape hatch — differentiated paths
-        # fall back to XLA attention instead of the flash VJP kernels
-        and not (_DIFFERENTIABLE_DEPTH > 0 and _env_flag("UCOD_ATTN_XLA_VJP"))
-    ):
-        return _packed_attention_diff(
-            q, k, v, num_heads, float(scale), _rowmax_softmax()
-        )
-
-    def split(x):
-        return (
-            x.reshape(b, l, num_heads, hd).transpose(0, 2, 1, 3).reshape(b * num_heads, l, hd)
-        )
-
-    if use_pallas():
-        o = _pallas_attention(split(q), split(k), split(v), float(scale))
-    else:
-        o = _xla_attention(split(q), split(k), split(v), float(scale))
-    return o.reshape(b, num_heads, l, hd).transpose(0, 2, 1, 3).reshape(b, l, d_model)

@@ -1,7 +1,7 @@
 """Fixed-strategy pseudo-label cues: DINO attention + cosine-similarity
 background segmentation.
 
-TPU-native rebuild of ``data/utils/found_bkg_mask.py:4-86`` (CroW-style
+JAX rebuild of ``data/utils/found_bkg_mask.py:4-86`` (CroW-style
 per-head sparsity weighting of key descriptors, cosine similarity against the
 least-attended patch) as a single batched XLA program, plus the host-side
 small-component cleanup of ``generate_pseudo_label.refine_post_process``

@@ -1,16 +1,17 @@
-"""Int8 (W8A8) quantized linear ops for TPU inference.
+"""Int8 (W8A8) quantized linear ops for inference.
 
-The v5e/v6e MXU executes int8 x int8 -> int32 matmuls at 2x the bf16 rate
-(v5e: 394 TOPS int8 vs 197 TFLOPS bf16).  The 518px eval composition is
-~77% linear-layer FLOPs (q/k/v/out/fc1/fc2; the attention itself stays in
-the bf16 flash kernel), so an int8 weight+activation path bounds at ~1.6x
-end-to-end (1 / (0.23 + 0.77/2)) before the dynamic-quantization overhead.
+Plain XLA: int8 x int8 -> int32 matmuls (``preferred_element_type``), which
+XLA hands to the card's int8 tensor cores where it can.  The 518px eval
+composition is ~77% linear-layer FLOPs (q/k/v/out/fc1/fc2; attention stays
+bf16), so an int8 path bounds at ~1.6x end-to-end (1 / (0.23 + 0.77/2))
+before the dynamic-quantization overhead.  Its speed on the H100 is not
+measured; a fused quantize+GEMM kernel for Hopper is on the ROADMAP.
 
 Scheme (standard W8A8, the conservative end of the design space):
   * weights: per-OUTPUT-CHANNEL symmetric scales, computed once offline
     (``quantize_linear``) — column-wise max-abs / 127;
-  * activations: per-TOKEN symmetric dynamic scales, computed in-graph on
-    the VPU (row-wise max-abs / 127) — per-token beats per-tensor on ViT
+  * activations: per-TOKEN symmetric dynamic scales, computed in-graph
+    (row-wise max-abs / 127) — per-token beats per-tensor on ViT
     activations whose outlier magnitude varies strongly across tokens;
   * accumulation in int32 (``preferred_element_type``), rescale in f32,
     output cast to the caller's compute dtype.
@@ -21,9 +22,7 @@ cache/train/eval compositions routes through it.  Quality impact on the
 real checkpoints is unmeasured until the environment ships weights —
 mechanism accuracy is pinned vs the f32 forward in tests/test_quant.py.
 
-No reference counterpart (the reference is fp16 end-to-end); this is a
-TPU-hardware capability (SURVEY §2.3's "performance-critical kernels"
-obligation, int8 MXU mode).
+No reference counterpart (the reference is fp16 end-to-end).
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ def quantize_act(x: jnp.ndarray):
     Split out of :func:`dense_w8a8` so callers applying SEVERAL quantized
     linears to the SAME input (the q/k/v projections share one LayerNorm
     output) quantize it once — the per-token max-abs/scale/round/cast is
-    pure VPU+HBM work that the MXU win cannot hide, and sharing it is
+    elementwise and memory work that the int8 matmul cannot hide, and sharing it is
     bitwise identical to repeating it (deterministic rounding)."""
     xf = x.astype(jnp.float32)
     s_x = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True) / 127.0, _EPS)
@@ -65,7 +64,7 @@ def dense_w8a8_pre(
     x_q: jnp.ndarray, s_x: jnp.ndarray, qp: Dict[str, jnp.ndarray], out_dtype
 ) -> jnp.ndarray:
     """The matmul half of :func:`dense_w8a8` on pre-quantized activations
-    (from :func:`quantize_act`): int32 MXU accumulation, f32 rescale."""
+    (from :func:`quantize_act`): int32 accumulation, f32 rescale."""
     acc = jax.lax.dot_general(
         x_q,
         qp["w_q"],
@@ -78,7 +77,7 @@ def dense_w8a8_pre(
 
 def dense_w8a8(x: jnp.ndarray, qp: Dict[str, jnp.ndarray], out_dtype) -> jnp.ndarray:
     """``x @ w + b`` with int8 weights and dynamically-quantized int8
-    activations; int32 MXU accumulation, f32 rescale.
+    activations; int32 accumulation, f32 rescale.
 
     x: (..., d_in) any float dtype.  Per-token scale = max-abs over the
     feature axis of each row."""

@@ -1,4 +1,4 @@
-"""Separable resampling ops with exact PyTorch semantics, as MXU matmuls.
+"""Separable resampling ops with exact PyTorch semantics, as small matmuls.
 
 The reference pipeline leans heavily on ``F.interpolate(mode='bilinear',
 align_corners=False)`` (feature/label resizing at every stage, e.g.
@@ -6,12 +6,12 @@ align_corners=False)`` (feature/label resizing at every stage, e.g.
 embeddings.  Exact parity matters for loading the shipped checkpoints and
 matching published metrics.
 
-TPU-first design: instead of gather-based interpolation (lane-hostile on
-TPU), each 1-D resample is expressed as a small dense weight matrix applied
-with ``einsum`` — separably over H then W.  Weight matrices have 2 (linear)
-or 4 (cubic) non-zeros per row, are built once on host per (in, out) pair,
-cached, and the contractions run on the MXU where XLA fuses them with
-surrounding elementwise work.
+Design: instead of gather-based interpolation, each 1-D resample is
+expressed as a small dense weight matrix applied with ``einsum`` —
+separably over H then W.  Weight matrices have 2 (linear) or 4 (cubic)
+non-zeros per row, are built once on host per (in, out) pair, cached, and
+the contractions run as matmuls that XLA fuses with surrounding elementwise
+work.
 """
 
 from __future__ import annotations
@@ -85,13 +85,13 @@ def _adaptive_avg_weights(in_size: int, out_size: int) -> np.ndarray:
 
 def _apply_separable(x: jnp.ndarray, wh: np.ndarray, ww: np.ndarray) -> jnp.ndarray:
     """Apply per-axis (out,in) weight matrices to the trailing two dims of a
-    (..., H, W) array; accumulates in float32 on the MXU."""
+    (..., H, W) array; accumulates in float32."""
     import jax
 
     orig_dtype = x.dtype
     wh_j = jnp.asarray(wh)
     ww_j = jnp.asarray(ww)
-    # full-f32 MXU passes: interpolation weights are exact-parity sensitive
+    # full-f32 matmul passes: interpolation weights are exact-parity sensitive
     y = jnp.einsum(
         "...hw,Hh->...Hw",
         x,
@@ -121,7 +121,7 @@ def interpolate_bilinear(x: jnp.ndarray, size: Tuple[int, int]) -> jnp.ndarray:
 def interpolate_bilinear_nhwc(x: jnp.ndarray, size: Tuple[int, int]) -> jnp.ndarray:
     """Bilinear resize of (B, H, W, C) arrays without layout transposes —
     the same per-axis weight matrices contracted over the middle axes (the
-    channel dim stays in lanes, TPU-native)."""
+    channel dim stays innermost)."""
     import jax
 
     h, w = int(size[0]), int(size[1])
@@ -160,7 +160,7 @@ def interpolate_bilinear_np(x: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     formula).  Used where a device round-trip would cost more than the
     resample itself — e.g. per-image mask resizing in the eval loops.
 
-    Gather-based on host (unlike the MXU matmul device path): the bilinear
+    Gather-based on host (unlike the matmul device path): the bilinear
     weight matrix has 2 nonzeros per row, so a dense einsum wastes ~in/2 of
     its FLOPs — at 518->640 that was 55ms/image of pure overhead."""
     h, w = int(size[0]), int(size[1])

@@ -1,9 +1,10 @@
 """Multi-host (multi-process) SPMD support.
 
-TPU-native replacement for the reference's NCCL/Accelerate substrate
-(SURVEY §5.8): ``jax.distributed.initialize`` bootstraps the process group
-from the TPU pod environment; GSPMD collectives ride ICI within a slice and
-DCN across slices.  Per-process dataset sharding replaces DistributedSampler;
+JAX replacement for the reference's NCCL/Accelerate substrate (SURVEY
+§5.8): ``jax.distributed.initialize`` bootstraps the process group (the
+coordinator address, process count and id come from the environment, see
+``maybe_initialize_distributed``); XLA hands GSPMD's collectives to NCCL
+on NVIDIA cards.  Per-process dataset sharding replaces DistributedSampler;
 metric gathering replaces ``accelerator.gather_for_metrics``.
 """
 

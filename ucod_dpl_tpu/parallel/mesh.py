@@ -1,10 +1,12 @@
 """Device mesh construction and sharding helpers.
 
 The reference's only parallelism is NCCL data-parallel via HuggingFace
-Accelerate (SURVEY §2.4/§5.8).  The TPU-native substrate is a
-``jax.sharding.Mesh`` with a ``data`` axis (DP over ICI/DCN, collectives
-inserted by GSPMD) plus a ``model`` axis reserved for tensor-parallel
-sharding of the ViT backbone on larger topologies.
+Accelerate (SURVEY §2.4/§5.8).  Here the substrate is a
+``jax.sharding.Mesh`` with a ``data`` axis (DP; GSPMD inserts the
+collectives, which XLA runs over NCCL on NVIDIA cards) plus optional
+``model`` (tensor-parallel) and ``seq`` (sequence-parallel) axes for the
+ViT backbone.  The default ``{data: -1}`` spreads the batch over every
+visible card.
 """
 
 from __future__ import annotations

@@ -19,19 +19,17 @@ extraction (no dataset caches needed):
     masks = rp.predict(["im1.jpg"])
 
 Design: one jitted pixels->mask program per batch bucket (powers of two up to
-``max_batch``), bf16 on TPU, uint8 mask readback, optional per-image
-LookTwice second pass reusing the eval-loop machinery.  The refine path
-reuses the CORAL evaluator's exact prep/refine programs
+``max_batch``), in the config's compute dtype (``tpu_cfg.compute_dtype``,
+else bf16 on the GPU), uint8 mask readback, optional per-image LookTwice
+second pass reusing the eval-loop machinery.  The refine path reuses the
+CORAL evaluator's exact prep/refine programs
 (engine/coral_loop.py::prepare_refine_inputs) so serving masks match the
 eval CLI's bit for bit on the same inputs.
 
-Throughput tuning (v5e, measured round 11): batch 32 is the device
-sweet spot at 518px — bs64 is NET SLOWER (605 vs 610 img/s int8; the
-batch sweep for bf16 found the same knee at 32) — so ``max_batch=32``
-maximises throughput and the default 16 trades ~2% of it for half the
-batch latency.  ``quantize="int8"`` adds ~20% on top of bf16
-(616-617 img/s builder-side on-chip; opt-in, validate quality on your
-data first — see MIGRATION 7b, incl. the int8 x parallelism matrix).
+Throughput per batch size on the H100 is not measured yet.
+``quantize="int8"`` is opt-in and, in plain XLA, ran slower than bf16 in one
+H100 bench run (PERF.md); validate quality on your data first (MIGRATION 7b,
+incl. the int8 x parallelism matrix).
 """
 
 from __future__ import annotations
@@ -44,6 +42,7 @@ import numpy as np
 
 from ucod_dpl_tpu.data.feature_extractor import FeatureExtractor
 from ucod_dpl_tpu.data.transforms import image_transform
+from ucod_dpl_tpu.device import resolve_compute_dtype
 from ucod_dpl_tpu.models.dba import RevDecoderParams, fg_logits_live
 from ucod_dpl_tpu.models.safetensors_io import load_decoder_checkpoint
 from ucod_dpl_tpu.ops.resize import interpolate_bilinear_nhwc, interpolate_bilinear_np
@@ -73,7 +72,7 @@ class Predictor:
         self.expand_type = expand_type
 
         # opt-in int8 W8A8 backbone (ops/quant.py): the transformer linears
-        # take the MXU's 2x int8 mode; quantized ONCE here, passed alongside
+        # run as int8 matmuls; quantized ONCE here, passed alongside
         # the full params (norms/embeddings still read from those)
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
@@ -135,12 +134,15 @@ class Predictor:
     ) -> "Predictor":
         """``strict=True`` (default): missing backbone weights raise instead
         of silently serving random-init features.  ``quantize="int8"``:
-        int8 W8A8 backbone (2x MXU rate; see ops/quant.py for the accuracy
-        contract)."""
+        int8 W8A8 backbone (see ops/quant.py for the accuracy contract)."""
         from ucod_dpl_tpu.config import load_config
 
         cfg = load_config(config_path)
-        fe = FeatureExtractor(cfg.dataset_cfg.feature_extractor_cfg, strict=strict)
+        fe = FeatureExtractor(
+            cfg.dataset_cfg.feature_extractor_cfg,
+            compute_dtype=resolve_compute_dtype(cfg),
+            strict=strict,
+        )
         decoder, _ema = load_decoder_checkpoint(checkpoint)
         return cls(
             fe,
@@ -321,7 +323,10 @@ class RefinePredictor:
 
         cfg = load_config(config_path)
         fe = FeatureExtractor(
-            cfg.dataset_cfg.feature_extractor_cfg, strict=strict, quantize=quantize
+            cfg.dataset_cfg.feature_extractor_cfg,
+            compute_dtype=resolve_compute_dtype(cfg),
+            strict=strict,
+            quantize=quantize,
         )
         decoder, _ema = load_decoder_checkpoint(checkpoint)
         refiner = load_refiner_checkpoint(refiner_path)

@@ -5,7 +5,7 @@ Keeps the on-disk contract of the reference's ``MetaListPickleIO``
 one file per sample plus an ``index.json`` mapping ``str(index) -> filename``,
 with an integrity check at open time that decides read vs. write mode.
 
-TPU-native differences: samples are stored as raw ``.npy`` arrays (fast,
+Differences from the reference: samples are stored as raw ``.npy`` arrays (fast,
 mmap-able, no pickle security surface, no torch dependency).  Read mode also
 understands the reference's legacy ``.pkl`` files (torch tensors) so caches
 produced by the PyTorch reference can be consumed directly.
